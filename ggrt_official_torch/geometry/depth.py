@@ -1,0 +1,29 @@
+"""Depth / disparity conversions on torch tensors (the subset the encoder
+and rasterizer call)."""
+from __future__ import annotations
+
+import torch
+
+
+def relative_disparity_to_depth(
+    relative_disparity: torch.Tensor,
+    near: torch.Tensor,
+    far: torch.Tensor,
+    eps: float = 1e-10,
+) -> torch.Tensor:
+    """0 = near, 1 = far."""
+    disp_near = 1.0 / (near + eps)
+    disp_far = 1.0 / (far + eps)
+    return 1.0 / ((1.0 - relative_disparity) * (disp_near - disp_far) + disp_far + eps)
+
+
+def depth_to_relative_disparity(
+    depth: torch.Tensor,
+    near: torch.Tensor,
+    far: torch.Tensor,
+    eps: float = 1e-10,
+) -> torch.Tensor:
+    disp_near = 1.0 / (near + eps)
+    disp_far = 1.0 / (far + eps)
+    disp = 1.0 / (depth + eps)
+    return 1.0 - (disp - disp_far) / (disp_near - disp_far + eps)

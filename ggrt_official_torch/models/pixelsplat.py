@@ -1,0 +1,89 @@
+"""PixelSplat: pairwise context encoding -> Gaussians -> decode (reference
+pixelsplat/pixelsplat.py:127-270).
+
+The reference loops over adjacent view pairs; here all pairs are stacked on
+the batch axis and encoded in one call — the same math, since the encoder
+never mixes batch entries.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..config import DecoderCfg, EncoderCfg
+from ..weights import init_flax_defaults
+from .decoder_splatting import DecoderOutput, DecoderSplatting
+from .encoder_epipolar import EncoderEpipolar
+from .gaussian_adapter import Gaussians
+
+
+def make_pair_batch(context: dict) -> dict:
+    """Stack the v-1 adjacent view pairs onto the batch axis: (b, v, ...)
+    tensors become (b*(v-1), 2, ...)."""
+    v = context["image"].shape[1]
+
+    def cut(t):
+        pairs = torch.stack([t[:, k:k + 2] for k in range(v - 1)], dim=1)
+        return pairs.reshape(-1, 2, *t.shape[2:])
+
+    return {k: cut(x) for k, x in context.items() if isinstance(x, torch.Tensor)}
+
+
+def merge_pair_gaussians(g: Gaussians, batch: int) -> Gaussians:
+    """(b*(v-1), n, ...) -> (b, (v-1)*n, ...)."""
+    return Gaussians(*(t.reshape(batch, -1, *t.shape[2:]) for t in g))
+
+
+class PixelSplat(nn.Module):
+    """Encoder + parameter-free decoder; the parameters are exactly the
+    encoder's ('gaussian' component of the reference checkpoints, under
+    `encoder.`)."""
+
+    def __init__(self, encoder_cfg: EncoderCfg, decoder_cfg: DecoderCfg,
+                 device="cuda", generator: Optional[torch.Generator] = None):
+        """Builds the model with flax's default initialisers drawn from
+        `generator` (seed 0 when None) and moves it to `device`.
+
+        On a CUDA device this also turns TF32 off for cuDNN convolutions and
+        cuBLAS matmuls, process-wide: the reference computes in float32 and
+        TF32 keeps about three decimal digits.
+        """
+        super().__init__()
+        self.encoder = EncoderEpipolar(encoder_cfg)
+        self.decoder = DecoderSplatting(decoder_cfg)
+        init_flax_defaults(self, generator or torch.Generator().manual_seed(0))
+        device = torch.device(device)
+        if device.type == "cuda":
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+        self.to(device)
+
+    def encode_pairs(self, context: dict, global_step, deterministic: bool = False,
+                     uniforms: Optional[torch.Tensor] = None) -> Gaussians:
+        """Encode all adjacent context pairs into one merged Gaussian set."""
+        b = context["image"].shape[0]
+        g = self.encoder(make_pair_batch(context), global_step,
+                         deterministic=deterministic, uniforms=uniforms)
+        return merge_pair_gaussians(g, b)
+
+    def forward(
+        self,
+        batch: dict,
+        global_step,
+        deterministic: bool = False,
+        uniforms: Optional[torch.Tensor] = None,
+        depth_mode: Optional[str] = "depth",
+    ) -> tuple[dict, dict]:
+        """Returns (ret, target_gt): ret['rgb'] (b, v_t, 3, h, w) and
+        ret['depth'] (b, v_t, h, w), as the reference does."""
+        target = batch["target"]
+        h, w = target["image"].shape[-2:]
+        gaussians = self.encode_pairs(batch["context"], global_step,
+                                      deterministic=deterministic, uniforms=uniforms)
+        out: DecoderOutput = self.decoder(
+            gaussians, target["extrinsics"], target["intrinsics"],
+            target["near"], target["far"], (h, w), depth_mode=depth_mode,
+        )
+        return {"rgb": out.color, "depth": out.depth}, {"rgb": target["image"]}
