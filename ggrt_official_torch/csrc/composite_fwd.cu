@@ -13,18 +13,22 @@
 //   nexec   (t,)        int32   chunks the tile executed
 // with P = tile_h * tile_w pixels. For pixel (x, y) in tile-centred
 // coordinates, u = l00·x + l01·y + cu, v = l11·y + cv and
-// alpha = opacity·exp(-(u² + v²)/2). CUDA 3DGS semantics: alpha below 1/255
-// is skipped, alpha is clamped at 0.99, and a pixel stops for good when
-// T·(1 - alpha) would fall below 1e-4.
+// alpha = opacity·exp(-(u² + v²)/2). Alpha below 1/255 is skipped and alpha
+// is clamped at 0.99. The TPU kernel's per-chunk rule: within a chunk a
+// pixel takes Gaussians in order while T·(1 - alpha) stays ≥ 1e-4 and stops
+// at the first one that would take it below; that ends only this chunk.
+// The next chunk starts again from the last contributing T, so a pixel that
+// saturated may take small-alpha Gaussians later. T never falls below 1e-4,
+// so the TPU kernel's "max T ≥ 1e-4" loop test always holds and every tile
+// runs all ceil(count/128) chunks: nexec == that count.
 //
 // Design. One block per tile and one thread per pixel (P ≤ 1024). The tile
 // walks its list in 128-Gaussian chunks: the block stages a chunk's six
 // record rows and three colour rows in shared memory (9 × 128 floats), then
-// every live thread walks the chunk in order with a running product for T.
-// The block leaves the chunk loop as soon as no pixel is alive
-// (__syncthreads_or), which is the early exit the TPU kernel expressed as a
-// whole-tile test. None of the TPU kernel's lane-roll cumprod, masked lane
-// selects or (8, 128) nexec broadcast is needed here.
+// every thread walks the chunk in order with a running product for T, which
+// at the chunk's end is the TPU kernel's T_run (the minimum of the
+// contributing transmittances). None of the TPU kernel's lane-roll cumprod,
+// masked lane selects or (8, 128) nexec broadcast is needed here.
 //
 // Bound. fp32 ALU and SFU (exp) throughput, not bytes. At the full-width
 // render (160 tiles of 8×128, K = 1024) the work is at most
@@ -43,7 +47,8 @@ constexpr float kAlphaMin = (float)(1.0 / 255.0);
 constexpr float kAlphaMax = 0.99f;
 constexpr float kTEps = 1e-4f;
 
-__global__ void composite_fwd_kernel(
+// 1024 threads a block: the compiler keeps to 64 registers a thread.
+__global__ void __launch_bounds__(1024) composite_fwd_kernel(
     const int* __restrict__ counts, const float* __restrict__ records,
     const float* __restrict__ colors, float* __restrict__ acc,
     float* __restrict__ tfin, float* __restrict__ tst, int* __restrict__ nexec,
@@ -68,12 +73,9 @@ __global__ void composite_fwd_kernel(
   float* tst_p = tst + ((size_t)t * P + p) * nch;
 
   float T = 1.0f, r = 0.0f, g = 0.0f, b = 0.0f;
-  bool alive = has_pixel;
-  int c = 0;
-  for (; c < need; ++c) {
-    // Also the barrier that keeps the previous chunk's readers ahead of the
-    // staging below.
-    if (!__syncthreads_or(alive)) break;
+  for (int c = 0; c < need; ++c) {
+    // Keeps the previous chunk's readers ahead of the staging below.
+    __syncthreads();
     const int off = c * kChunk;
     for (int i = threadIdx.x; i < 9 * kChunk; i += blockDim.x) {
       const int row = i / kChunk, k = i % kChunk;
@@ -84,31 +86,27 @@ __global__ void composite_fwd_kernel(
       }
     }
     __syncthreads();
-    if (has_pixel) tst_p[c] = T;
-    if (alive) {
-      for (int j = 0; j < kChunk; ++j) {
-        const float u = px * s_rec[0][j] + py * s_rec[1][j] + s_rec[2][j];
-        const float v = py * s_rec[3][j] + s_rec[4][j];
-        const float araw = s_rec[5][j] * expf(-0.5f * (u * u + v * v));
-        if (araw < kAlphaMin) continue;
-        const float alpha = fminf(araw, kAlphaMax);
-        const float T_next = T * (1.0f - alpha);
-        if (T_next < kTEps) {
-          alive = false;
-          break;
-        }
-        const float w = alpha * T;
-        r += w * s_col[0][j];
-        g += w * s_col[1][j];
-        b += w * s_col[2][j];
-        T = T_next;
-      }
+    if (!has_pixel) continue;
+    tst_p[c] = T;
+    for (int j = 0; j < kChunk; ++j) {
+      const float u = px * s_rec[0][j] + py * s_rec[1][j] + s_rec[2][j];
+      const float v = py * s_rec[3][j] + s_rec[4][j];
+      const float araw = s_rec[5][j] * expf(-0.5f * (u * u + v * v));
+      if (!(araw >= kAlphaMin)) continue;  // NaN skips too, as in the TPU kernel
+      const float alpha = fminf(araw, kAlphaMax);
+      const float T_next = T * (1.0f - alpha);
+      if (T_next < kTEps) break;  // ends this chunk only
+      const float w = alpha * T;
+      r += w * s_col[0][j];
+      g += w * s_col[1][j];
+      b += w * s_col[2][j];
+      T = T_next;
     }
   }
 
-  if (threadIdx.x == 0) nexec[t] = c;
+  if (threadIdx.x == 0) nexec[t] = need;
   if (has_pixel) {
-    for (int cc = c; cc < nch; ++cc) tst_p[cc] = 1.0f;
+    for (int cc = need; cc < nch; ++cc) tst_p[cc] = 1.0f;
     const size_t q = (size_t)t * P + p;
     tfin[q] = T;
     acc[q * 4 + 0] = r;

@@ -1,10 +1,16 @@
-"""pixelSplat context-image backbone: ResNet trunk with affine-free instance
-norm, per-stage 1x1 projections upsampled to full resolution and summed
-(reference backbone_resnet.py:28-100).
+"""ResNet feature backbones, NCHW inside, JAX-package layouts at the edges.
+
+  * `BackboneResnet`, the pixelSplat context-image backbone: ResNet trunk
+    with affine-free instance norm, per-stage 1x1 projections upsampled to
+    full resolution and summed (reference backbone_resnet.py:28-100).
+  * `ResNetEncoder`, the IPO-Net feature/context net: a resnet18 trunk with
+    frozen batch norm to stride 16, upsampled and fused back to stride 8
+    or 4 (reference feature_network.py:274-381).
 
 Module names follow the reference checkpoint keys (`model.conv1`,
 `model.layer{s}.{b}.conv{c}`, `model.layer{s}.{b}.downsample.0`,
-`projections.layer{i}`), so a converted checkpoint loads by name.
+`projections.layer{i}`; `conv1`, `bn1`, `layer{s}.{b}.bn{c}`, `upconv1.0`,
+`out_conv` for the encoder), so a converted checkpoint loads by name.
 
 Conversion-exact details shared with the JAX package:
   * every trunk conv pads symmetrically (k // 2), as torch does;
@@ -36,21 +42,54 @@ def _conv(cin: int, cout: int, k: int, stride: int = 1, bias: bool = False) -> n
     return nn.Conv2d(cin, cout, k, stride=stride, padding=k // 2, bias=bias)
 
 
+def resize_bilinear(x: torch.Tensor, hw: tuple[int, int]) -> torch.Tensor:
+    """Half-pixel bilinear resize of (b, c, h, w), as jax.image.resize
+    gives it for the upsampling the encoders do."""
+    return F.interpolate(x, size=hw, mode="bilinear", align_corners=False)
+
+
+def resize_bilinear_align_corners(x: torch.Tensor, hw: tuple[int, int]) -> torch.Tensor:
+    return F.interpolate(x, size=hw, mode="bilinear", align_corners=True)
+
+
+class FrozenBatchNorm(nn.Module):
+    """Batch norm with fixed running statistics: y = (x - mean)/sqrt(var +
+    eps)·weight + bias. The statistics are buffers, so no optimizer sees
+    them, as the JAX package stop-gradients them."""
+
+    def __init__(self, c: int, epsilon: float = 1e-5):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+        self.register_buffer("running_mean", torch.zeros(c))
+        self.register_buffer("running_var", torch.ones(c))
+        self.epsilon = epsilon
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        inv = torch.rsqrt(self.running_var + self.epsilon) * self.weight
+        return x * inv[:, None, None] + (self.bias - self.running_mean * inv)[:, None, None]
+
+
 class BasicBlock(nn.Module):
+    """Basic residual block; `norm(c)` makes each of its norms: instance
+    norm in the pixelSplat trunk, frozen batch norm (named bn1, bn2 and
+    downsample.1, as the reference's) in the IPO-Net encoder."""
+
     expansion = 1
 
-    def __init__(self, cin: int, width: int, stride: int = 1):
+    def __init__(self, cin: int, width: int, stride: int = 1, norm=lambda c: InstanceNorm()):
         super().__init__()
         self.conv1 = _conv(cin, width, 3, stride)
+        self.bn1 = norm(width)
         self.conv2 = _conv(width, width, 3)
-        self.norm = InstanceNorm()
+        self.bn2 = norm(width)
         self.downsample = None
         if stride != 1 or cin != width:
-            self.downsample = nn.Sequential(_conv(cin, width, 1, stride), InstanceNorm())
+            self.downsample = nn.Sequential(_conv(cin, width, 1, stride), norm(width))
 
     def forward(self, x):
-        y = F.relu(self.norm(self.conv1(x)))
-        y = self.norm(self.conv2(y))
+        y = F.relu(self.bn1(self.conv1(x)))
+        y = self.bn2(self.conv2(y))
         residual = x if self.downsample is None else self.downsample(x)
         return F.relu(y + residual)
 
@@ -138,3 +177,54 @@ class BackboneResnet(nn.Module):
                               mode="bilinear", align_corners=True)
             total = p if total is None else total + p
         return total.permute(0, 2, 3, 1).reshape(b, v, h, w, self.d_out)
+
+
+class ResNetEncoder(nn.Module):
+    """IPO-Net feature/context encoder, resnet18 with frozen batch norm:
+    conv1/s2 + norm + maxpool/s2 +
+    layer1 + layer2/s2 + layer3/s2, then bilinear upsampling and conv fusion
+    back to stride 8 (or 4), in the reference's order.
+
+    Input (b, in_chs, h, w) -> (b, out_chs, h/stride, w/stride), NCHW."""
+
+    def __init__(self, in_chs: int = 3, out_chs: int = 128, stride: int = 8):
+        super().__init__()
+        if stride not in (4, 8):
+            raise ValueError(f"stride {stride} unsupported")
+        self.stride = stride
+        self.conv1 = _conv(in_chs, 64, 7, 2)
+        self.bn1 = FrozenBatchNorm(64)
+        cin = 64
+        for stage, (width, n, first_stride) in enumerate(
+                zip((64, 128, 256), RESNET_LAYERS["resnet18"][1][:3], (1, 2, 2)), start=1):
+            blocks = []
+            for i in range(n):
+                blocks.append(BasicBlock(cin, width, first_stride if i == 0 else 1, FrozenBatchNorm))
+                cin = width
+            self.add_module(f"layer{stage}", nn.Sequential(*blocks))
+
+        def conv_relu(a, b):
+            return nn.Sequential(nn.Conv2d(a, b, 3, padding=1), nn.ReLU())
+
+        self.upconv1 = conv_relu(256, 128)
+        self.upconv1_fusion = conv_relu(256, 128)
+        if stride == 4:
+            self.upconv2 = conv_relu(128, 64)
+            self.upconv2_fusion = conv_relu(128, 64)
+        self.out_conv = nn.Conv2d(128 if stride == 8 else 64, out_chs, 3, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.relu(self.bn1(self.conv1(x)))
+        # -inf padding, as flax's max_pool pads.
+        x = F.max_pool2d(x, 3, stride=2, padding=1)
+        s4 = x = self.layer1(x)
+        s8 = x = self.layer2(x)
+        x = self.layer3(x)
+        x = self.upconv1(resize_bilinear(x, (2 * x.shape[2], 2 * x.shape[3])))
+        x = torch.cat([x, resize_bilinear(s8, x.shape[2:])], dim=1)
+        x = self.upconv1_fusion(x)
+        if self.stride == 4:
+            x = self.upconv2(resize_bilinear(x, (2 * x.shape[2], 2 * x.shape[3])))
+            x = torch.cat([x, resize_bilinear(s4, x.shape[2:])], dim=1)
+            x = self.upconv2_fusion(x)
+        return self.out_conv(x)

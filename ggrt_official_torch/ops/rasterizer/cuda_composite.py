@@ -1,5 +1,5 @@
-"""Per-tile alpha compositing: record build, the Hopper kernel's wrapper,
-its plain PyTorch version, and the image assembly.
+"""Per-tile alpha compositing: record build, the Hopper kernels' wrappers,
+their plain PyTorch versions, the autograd functions and the image assembly.
 
 Records are component-major (tiles, 8, K) and hold the Cholesky factor of
 each Gaussian's conic with its tile-local mean folded into linear
@@ -8,35 +8,45 @@ u = l00·x + l01·y + cu and v = l11·y + cv are whitened screen offsets and
 alpha = opacity·exp(-(u² + v²)/2). K is padded to a multiple of 128, the
 compositor's chunk.
 
-`composite_fwd` launches the CUDA kernel (csrc/composite_fwd.cu) for CUDA
-tensors and runs `composite_records_plain` for CPU tensors; on any other
-device it raises. It never falls back from the kernel to the plain version.
+`composite_fwd` and `composite_bwd` launch the CUDA kernels
+(csrc/composite_fwd.cu, csrc/composite_bwd.cu) for CUDA tensors and run
+`composite_records_plain` / `composite_bwd_plain` for CPU tensors; on any
+other device they raise. They never fall back from a kernel to a plain
+version. `CompositeCore` and `GatherRows` are the autograd functions of the
+JAX package's `_get_composite_core` and `_gather_rows`: the compositor's
+backward is the backward kernel, the gather's is the segment-sum kernel.
 """
 from __future__ import annotations
-
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 import torch.nn.functional as F
 
+from ..cuda_kernel import INT, PTR, CudaKernel, check_tensors
 from .projection import ALPHA_MAX, ALPHA_MIN, T_EPS, ProjectedGaussians
+from .segment_sum import scatter_add_rows
 from .tiling import TILE_H, TILE_W, TileBinning
 
 CHUNK = 128                  # Gaussians per compositor chunk
-MAX_TILE_PIXELS = 1024       # the kernel runs one thread per tile pixel
+MAX_TILE_PIXELS = 1024       # the kernels run one thread per tile pixel
 
-_PKG_ROOT = Path(__file__).resolve().parents[2]
-SOURCE = _PKG_ROOT / "csrc" / "composite_fwd.cu"
-BUILD_DIR = _PKG_ROOT / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+
+class GatherRows(torch.autograd.Function):
+    """comp[max(ids, 0)]; the pullback scatter-adds the live rows only, with
+    dead ids (< 0) sent to the dump row g, which the scatter drops."""
+
+    @staticmethod
+    def forward(ctx, comp, ids):
+        ctx.save_for_backward(ids)
+        ctx.g = comp.shape[0]
+        return comp[ids.clamp(min=0)]
+
+    @staticmethod
+    def backward(ctx, dgath):
+        (ids,) = ctx.saved_tensors
+        g = ctx.g
+        idx = torch.where(ids >= 0, ids, g).reshape(-1).to(torch.int32)
+        dcomp = scatter_add_rows(idx, dgath.reshape(idx.shape[0], -1).contiguous(), g)
+        return dcomp, None
 
 
 def build_records(pg: ProjectedGaussians, binning: TileBinning,
@@ -55,7 +65,7 @@ def build_records(pg: ProjectedGaussians, binning: TileBinning,
     comp = torch.cat(
         [pg.mean2d, pg.conic, pg.color, pg.opacity[:, None]], dim=-1
     )  # (g, 9)
-    gath = comp[ids.clamp(min=0)]  # (t, K0, 9)
+    gath = GatherRows.apply(comp, ids)  # (t, K0, 9)
     if K_pad != K0:
         ids = F.pad(ids, (0, K_pad - K0), value=-1)
         gath = F.pad(gath, (0, 0, 0, K_pad - K0))
@@ -145,41 +155,20 @@ def composite_records_plain(records: torch.Tensor, colors: torch.Tensor,
     return acc, T_run, tst, nexec
 
 
-class CompositeFwd:
-    """Wrapper of the CUDA compositor kernel.
+def _check_tile(K: int, tile_h: int, tile_w: int) -> None:
+    if K % CHUNK or K == 0:
+        raise ValueError(f"K={K} must be a positive multiple of {CHUNK}")
+    if not 0 < tile_h * tile_w <= MAX_TILE_PIXELS:
+        raise ValueError(f"tile {tile_h}x{tile_w} has {tile_h * tile_w} pixels; "
+                         f"the kernels take 1..{MAX_TILE_PIXELS}")
 
-    `launches` counts kernel launches (plain-version calls on the CPU do not
-    count). The shared library is built with nvcc from csrc/ into _build/
-    at first use; `build()` may be called ahead to time it.
-    """
+
+class CompositeFwd(CudaKernel):
+    """Wrapper of the CUDA forward compositor; `launches` counts kernel
+    launches (plain-version calls on the CPU do not count)."""
 
     def __init__(self):
-        self.launches = 0
-        self.build_log = ""
-        self._lib = None
-
-    def build(self) -> ctypes.CDLL:
-        if self._lib is not None:
-            return self._lib
-        src = SOURCE.read_bytes()
-        so = BUILD_DIR / f"composite_fwd_{hashlib.sha256(src).hexdigest()[:16]}.so"
-        if not so.exists():
-            nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            proc = subprocess.run(
-                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                capture_output=True, text=True,
-            )
-            self.build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{self.build_log}")
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(str(so))
-        lib.composite_fwd.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        lib.composite_fwd.restype = ctypes.c_int
-        self._lib = lib
-        return lib
+        super().__init__("composite_fwd.cu", "composite_fwd", [PTR] * 7 + [INT] * 4)
 
     def launch(self, records, colors, counts, tile_h, tile_w):
         """Run the kernel on CUDA tensors; returns (acc, tfin, tst, nexec)."""
@@ -190,33 +179,19 @@ class CompositeFwd:
                 f"records {tuple(records.shape)}, colors {tuple(colors.shape)}, "
                 f"counts {tuple(counts.shape)} do not form (t,8,K), (t,4,K), (t,)"
             )
-        if K % CHUNK or K == 0:
-            raise ValueError(f"K={K} must be a positive multiple of {CHUNK}")
-        if not 0 < P <= MAX_TILE_PIXELS:
-            raise ValueError(f"tile {tile_h}x{tile_w} has {P} pixels; the kernel takes 1..{MAX_TILE_PIXELS}")
-        for name, x, dtype in (("records", records, torch.float32),
-                               ("colors", colors, torch.float32),
-                               ("counts", counts, torch.int32)):
-            if x.device != records.device or x.dtype != dtype or not x.is_contiguous():
-                raise ValueError(f"{name} must be a contiguous {dtype} tensor on {records.device}")
-        lib = self.build()
+        _check_tile(K, tile_h, tile_w)
         dev = records.device
+        check_tensors(dev, records=(records, torch.float32), colors=(colors, torch.float32),
+                      counts=(counts, torch.int32))
         acc = torch.empty(t, P, 4, dtype=torch.float32, device=dev)
         tfin = torch.empty(t, P, 1, dtype=torch.float32, device=dev)
         tst = torch.empty(t, P, K // CHUNK, dtype=torch.float32, device=dev)
         nexec = torch.empty(t, dtype=torch.int32, device=dev)
         if t == 0:
             return acc, tfin, tst, nexec
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.composite_fwd(
-                counts.data_ptr(), records.data_ptr(), colors.data_ptr(),
-                acc.data_ptr(), tfin.data_ptr(), tst.data_ptr(), nexec.data_ptr(),
-                t, K, tile_h, tile_w, stream,
-            )
-        if err != 0:
-            raise RuntimeError(f"composite_fwd launch failed with CUDA error {err}")
-        self.launches += 1
+        self.run(dev, counts.data_ptr(), records.data_ptr(), colors.data_ptr(),
+                 acc.data_ptr(), tfin.data_ptr(), tst.data_ptr(), nexec.data_ptr(),
+                 t, K, tile_h, tile_w)
         return acc, tfin, tst, nexec
 
     def __call__(self, records, colors, counts, tile_h: int = TILE_H, tile_w: int = TILE_W):
@@ -228,6 +203,122 @@ class CompositeFwd:
 
 
 composite_fwd = CompositeFwd()
+
+
+def composite_bwd_plain(records, colors, tst, nexec, tfin, gout, gtfin,
+                        tile_h: int = TILE_H, tile_w: int = TILE_W):
+    """Plain PyTorch version of the backward kernel: the formulas of the TPU
+    kernel (pallas_composite.py:188-251) chunk by chunk, back to front, on
+    (t, P, 128) tensors, all tiles at once; a tile takes part in chunk c
+    only if c < nexec. Returns drec (t, 8, K) and dcol (t, 4, K)."""
+    t, _, K = records.shape
+    nch = K // CHUNK
+    dev = records.device
+    px, py = _pixel_basis(tile_h, tile_w, dev)
+    px, py = px[None, :, None], py[None, :, None]
+    drec = torch.zeros(t, 8, K, dtype=torch.float32, device=dev)
+    dcol = torch.zeros(t, 4, K, dtype=torch.float32, device=dev)
+    dacc = gout[..., :3]                                       # (t, P, 3)
+    bgterm = gtfin * tfin                                      # (t, P, 1)
+    accum = torch.zeros_like(bgterm)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    for c in reversed(range(nch)):
+        run = c < nexec.long()                                 # (t,)
+        if not bool(run.any()):
+            continue
+        sl = slice(c * CHUNK, (c + 1) * CHUNK)
+        B = records[:, :, sl]
+        C = colors[:, :3, sl]
+        u = px * B[:, 0:1] + py * B[:, 1:2] + B[:, 2:3]        # (t, P, CH)
+        v = py * B[:, 3:4] + B[:, 4:5]
+        e = torch.exp(-0.5 * (u * u + v * v))
+        araw = B[:, 5:6] * e
+        alpha = torch.where(araw >= ALPHA_MIN, torch.clamp(araw, max=ALPHA_MAX), zero)
+        om = 1.0 - alpha
+        TT = tst[:, :, c:c + 1] * torch.cumprod(om, dim=2)
+        contrib = TT >= T_EPS
+        Tb = TT / om
+        w = torch.where(contrib, alpha * Tb, zero)
+        dwdot = dacc[..., 0:1] * C[:, 0:1] + dacc[..., 1:2] * C[:, 1:2] + dacc[..., 2:3] * C[:, 2:3]
+        dcol_c = (dacc[..., :, None] * w[:, :, None, :]).sum(dim=1)  # (t, 3, CH)
+        vchunk = dwdot * w
+        sfx = torch.flip(torch.cumsum(torch.flip(vchunk, (2,)), dim=2), (2,)) - vchunk
+        dalpha = torch.where(contrib, dwdot * Tb - (sfx + accum + bgterm) / om, zero)
+        live = (araw >= ALPHA_MIN) & (araw < ALPHA_MAX)
+        daraw = torch.where(live, dalpha, zero)
+        dq2 = daraw * araw
+        du, dv = -u * dq2, -v * dq2
+        grads = torch.stack([(du * px).sum(1), (du * py).sum(1), du.sum(1),
+                             (dv * py).sum(1), dv.sum(1), (daraw * e).sum(1)], dim=1)
+        keep = run[:, None, None]
+        drec[:, :6, sl] = torch.where(keep, grads, zero)
+        dcol[:, :3, sl] = torch.where(keep, dcol_c, zero)
+        accum = torch.where(keep, accum + vchunk.sum(dim=2, keepdim=True), accum)
+    return drec, dcol
+
+
+class CompositeBwd(CudaKernel):
+    """Wrapper of the CUDA backward compositor; `launches` counts launches."""
+
+    def __init__(self):
+        super().__init__("composite_bwd.cu", "composite_bwd", [PTR] * 9 + [INT] * 4)
+
+    def launch(self, records, colors, tst, nexec, tfin, gout, gtfin, tile_h, tile_w):
+        """Run the kernel on CUDA tensors; returns (drec, dcol)."""
+        t, rows, K = records.shape
+        P = tile_h * tile_w
+        shapes = {"colors": (colors, (t, 4, K)), "tst": (tst, (t, P, K // CHUNK)),
+                  "nexec": (nexec, (t,)), "tfin": (tfin, (t, P, 1)),
+                  "gout": (gout, (t, P, 4)), "gtfin": (gtfin, (t, P, 1))}
+        bad = [n for n, (x, shape) in shapes.items() if tuple(x.shape) != shape]
+        if rows != 8 or bad:
+            raise ValueError(f"records {tuple(records.shape)} with {bad} of other shapes")
+        _check_tile(K, tile_h, tile_w)
+        dev = records.device
+        f32 = torch.float32
+        check_tensors(dev, records=(records, f32), colors=(colors, f32), tst=(tst, f32),
+                      nexec=(nexec, torch.int32), tfin=(tfin, f32), gout=(gout, f32),
+                      gtfin=(gtfin, f32))
+        drec = torch.zeros(t, 8, K, dtype=f32, device=dev)
+        dcol = torch.zeros(t, 4, K, dtype=f32, device=dev)
+        if t == 0:
+            return drec, dcol
+        self.run(dev, nexec.data_ptr(), records.data_ptr(), colors.data_ptr(), tst.data_ptr(),
+                 tfin.data_ptr(), gout.data_ptr(), gtfin.data_ptr(), drec.data_ptr(),
+                 dcol.data_ptr(), t, K, tile_h, tile_w)
+        return drec, dcol
+
+    def __call__(self, records, colors, tst, nexec, tfin, gout, gtfin,
+                 tile_h: int = TILE_H, tile_w: int = TILE_W):
+        if records.is_cuda:
+            return self.launch(records, colors, tst, nexec, tfin, gout, gtfin, tile_h, tile_w)
+        if records.device.type == "cpu":
+            return composite_bwd_plain(records, colors, tst, nexec, tfin, gout, gtfin,
+                                       tile_h, tile_w)
+        raise RuntimeError(f"no compositor for device {records.device}")
+
+
+composite_bwd = CompositeBwd()
+
+
+class CompositeCore(torch.autograd.Function):
+    """(records, colors, counts) -> (acc, tfin) through the forward kernel;
+    the backward kernel gives d(records) and d(colors), and counts get no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, records, colors, counts, tile_h, tile_w):
+        acc, tfin, tst, nexec = composite_fwd(records, colors, counts, tile_h, tile_w)
+        ctx.save_for_backward(records, colors, tst, nexec, tfin)
+        ctx.tile = (tile_h, tile_w)
+        return acc, tfin
+
+    @staticmethod
+    def backward(ctx, gacc, gtfin):
+        records, colors, tst, nexec, tfin = ctx.saved_tensors
+        drec, dcol = composite_bwd(records, colors, tst, nexec, tfin, gacc.contiguous(),
+                                   gtfin.contiguous(), *ctx.tile)
+        return drec, dcol, None, None, None
 
 
 def composite_tiles(
@@ -242,7 +333,7 @@ def composite_tiles(
     h, w = image_shape
     nty, ntx = binning.num_tiles_y, binning.num_tiles_x
     records, colors, counts = build_records(pg, binning, tile_h, tile_w)
-    acc, tfin, _, _ = composite_fwd(records, colors, counts, tile_h, tile_w)
+    acc, tfin = CompositeCore.apply(records, colors, counts, tile_h, tile_w)
     img = acc[..., :3].transpose(1, 2) + tfin.transpose(1, 2) * background[None, :, None]
     img = img.reshape(nty, ntx, 3, tile_h, tile_w).permute(2, 0, 3, 1, 4)
     img = img.reshape(3, nty * tile_h, ntx * tile_w)

@@ -82,8 +82,15 @@ def project_gaussians(
 
     means_h = torch.cat([means, torch.ones_like(means[..., :1])], dim=-1)
     p_view = (means_h @ view.T)[..., :3]
+    tz = p_view[..., 2]
+    # Culled Gaussians (tz <= NEAR_CLIP) are never binned, so their screen
+    # quantities reach no pixel. They take a stand-in depth of 1 below: at
+    # tz = 0 the formulas give inf and NaN, and a zero cotangent times an
+    # infinite derivative would make the whole gradient NaN.
+    in_front = tz > NEAR_CLIP
+    tz_safe = torch.where(in_front, tz, torch.ones_like(tz))
     p_hom = means_h @ full_proj.T
-    p_w = 1.0 / (p_hom[..., 3] + 1e-7)
+    p_w = 1.0 / (torch.where(in_front, p_hom[..., 3], torch.ones_like(tz)) + 1e-7)
     p_ndc = p_hom[..., :3] * p_w[..., None]
 
     size = torch.tensor([w, h], dtype=means.dtype, device=means.device)
@@ -96,20 +103,19 @@ def project_gaussians(
     focal_x = w / (2.0 * tan_fovx)
     focal_y = h / (2.0 * tan_fovy)
 
-    tz = p_view[..., 2]
     limx = 1.3 * tan_fovx
     limy = 1.3 * tan_fovy
-    txtz = torch.minimum(torch.maximum(p_view[..., 0] / tz, -limx), limx)
-    tytz = torch.minimum(torch.maximum(p_view[..., 1] / tz, -limy), limy)
-    tx = txtz * tz
-    ty = tytz * tz
+    txtz = torch.minimum(torch.maximum(p_view[..., 0] / tz_safe, -limx), limx)
+    tytz = torch.minimum(torch.maximum(p_view[..., 1] / tz_safe, -limy), limy)
+    tx = txtz * tz_safe
+    ty = tytz * tz_safe
 
     # Rows of M = J @ W: m0 = j0*W[0] + j2x*W[2]; m1 = j1*W[1] + j2y*W[2].
     W3 = view[:3, :3]
-    j0 = focal_x / tz
-    j2x = -(focal_x * tx) / (tz * tz)
-    j1 = focal_y / tz
-    j2y = -(focal_y * ty) / (tz * tz)
+    j0 = focal_x / tz_safe
+    j2x = -(focal_x * tx) / (tz_safe * tz_safe)
+    j1 = focal_y / tz_safe
+    j2y = -(focal_y * ty) / (tz_safe * tz_safe)
     m0 = j0[:, None] * W3[0][None, :] + j2x[:, None] * W3[2][None, :]  # (g, 3)
     m1 = j1[:, None] * W3[1][None, :] + j2y[:, None] * W3[2][None, :]
     u0 = (covariances * m0[:, None, :]).sum(dim=-1)  # (g, 3)
@@ -152,7 +158,7 @@ def project_gaussians(
     dirs = dirs * torch.rsqrt((dirs * dirs).sum(dim=-1, keepdim=True) + 1e-12)
     color = sh_ops.eval_sh(sh_coeffs, dirs)
 
-    valid = det_valid & (tz > NEAR_CLIP)
+    valid = det_valid & in_front
     radius = torch.where(valid, radius, torch.zeros_like(radius))
     extent = torch.where(valid[:, None], extent, torch.zeros_like(extent))
 

@@ -3,8 +3,9 @@ initialisers for freshly built modules.
 
 The name map is a private copy of the rows the JAX package's
 training/convert.py builds for the pixelSplat encoder
-(`encoder_name_map`, `backbone_resnet_name_map` and their helpers), read in
-reverse: each row is (reference torch key, flax path, kind), and the port's
+(`encoder_name_map`, `backbone_resnet_name_map` and their helpers) and for
+IPO-Net (`depth_pose_net_name_map`, `resnet_encoder_name_map`,
+`sep_conv_gru_map`, `bn_map`), read in reverse: each row is (reference torch key, flax path, kind), and the port's
 module names ARE the reference torch keys, so a row maps one flax leaf onto
 one entry of the port's state_dict. Layout conversions, the inverse of
 convert.py's:
@@ -15,6 +16,7 @@ convert.py's:
                                             spatially flipped: flax does not flip
                                             the kernel, torch does
   flax LayerNorm scale/bias              -> torch weight/bias
+  flax FrozenBatchNorm scale/bias/mean/var -> torch weight/bias/running_mean/running_var
 """
 from __future__ import annotations
 
@@ -114,18 +116,86 @@ def epipolar_transformer_name_map(cfg, torch_prefix="epipolar_transformer",
     return rows
 
 
+def bn_map(torch_prefix: str, flax_path: tuple[str, ...]):
+    """torch BatchNorm2d / the port's FrozenBatchNorm -> flax FrozenBatchNorm."""
+    return [
+        (f"{torch_prefix}.weight", (*flax_path, "scale"), "raw"),
+        (f"{torch_prefix}.bias", (*flax_path, "bias"), "raw"),
+        (f"{torch_prefix}.running_mean", (*flax_path, "mean"), "raw"),
+        (f"{torch_prefix}.running_var", (*flax_path, "var"), "raw"),
+    ]
+
+
 def trunk_block_map(stage, block, bottleneck=True, downsample=False,
-                    torch_root="backbone.model", flax_root=("backbone", "trunk")):
-    """torchvision layer{stage}.{block} -> trunk layer{stage}_block{block};
-    instance norm, so the norms carry no parameters."""
+                    torch_root="backbone.model", flax_root=("backbone", "trunk"),
+                    batch_norm=False):
+    """torchvision layer{stage}.{block} -> trunk layer{stage}_block{block}.
+    With instance norm the norms carry no parameters; with batch_norm (the
+    IPO-Net encoder) bn{c} and downsample.1 map onto FrozenBatchNorm_{i},
+    numbered in flax's creation order (Conv_0, FrozenBatchNorm_0, ...)."""
     t = f"{torch_root}.layer{stage}.{block}"
     f = (*flax_root, f"layer{stage}_block{block}")
     n_convs = 3 if bottleneck else 2
     rows = []
     for c in range(1, n_convs + 1):
         rows += conv_map(f"{t}.conv{c}", (*f, f"Conv_{c-1}"), bias=False)
+        if batch_norm:
+            rows += bn_map(f"{t}.bn{c}", (*f, f"FrozenBatchNorm_{c-1}"))
     if downsample:
         rows += conv_map(f"{t}.downsample.0", (*f, f"Conv_{n_convs}"), bias=False)
+        if batch_norm:
+            rows += bn_map(f"{t}.downsample.1", (*f, f"FrozenBatchNorm_{n_convs}"))
+    return rows
+
+
+def resnet_encoder_name_map(model: str = "resnet18", stride: int = 8):
+    """The IPO-Net ResNetEncoder (frozen batch norm, basic blocks)."""
+    rows = conv_map("conv1", ("conv1",), bias=False) + bn_map("bn1", ("norm1",))
+    for stage in (1, 2, 3):
+        for b in range(_RESNET_BLOCKS[model][stage - 1]):
+            rows += trunk_block_map(stage, b, bottleneck=False, downsample=(stage > 1 and b == 0),
+                                    torch_root="", flax_root=(), batch_norm=True)
+    rows = [(k.lstrip("."), p, kind) for (k, p, kind) in rows]
+    for name in ("upconv1", "upconv1_fusion") + (("upconv2", "upconv2_fusion") if stride == 4 else ()):
+        rows += conv_map(f"{name}.0", (name,))
+    rows += conv_map("out_conv", ("out_conv",))
+    return rows
+
+
+def sep_conv_gru_map(torch_prefix: str, flax_path: tuple[str, ...]):
+    rows = []
+    for name in ("convz1", "convr1", "convq1", "convz2", "convr2", "convq2"):
+        rows += conv_map(f"{torch_prefix}.{name}", (*flax_path, name))
+    return rows
+
+
+def depth_pose_net_name_map(stride: int = 8):
+    """Every parameter of IPONet: feature and context trunks, init heads,
+    the upsampling-mask net and both GRU update blocks."""
+    rows: list = []
+    enc = resnet_encoder_name_map("resnet18", stride=stride)
+    for net in ("fnet", "cnet_depth", "cnet_pose"):
+        rows += prefix_map(enc, net, (net,))
+    rows += conv_map("depth_head.conv1", ("depth_head", "conv1"))
+    rows += conv_map("depth_head.conv2", ("depth_head", "conv2"))
+    rows += conv_map("pose_head.conv1_pose", ("pose_head", "conv1"))
+    rows += conv_map("pose_head.conv2_pose", ("pose_head", "conv2"))
+    rows += conv_map("upmask_net.mask.0", ("upmask_net", "conv1"))
+    rows += conv_map("upmask_net.mask.2", ("upmask_net", "conv2"))
+    d = "update_block_depth"
+    for c in ("convc1", "convc2", "convd1", "convd2", "convd"):
+        rows += conv_map(f"{d}.encoder.{c}", (d, "encoder", c))
+    rows += sep_conv_gru_map(f"{d}.depth_gru", (d, "depth_gru"))
+    rows += conv_map(f"{d}.depth_head.conv1", (d, "depth_head", "conv1"))
+    rows += conv_map(f"{d}.depth_head.conv2", (d, "depth_head", "conv2"))
+    rows += conv_map(f"{d}.mask.0", (d, "mask1"))
+    rows += conv_map(f"{d}.mask.2", (d, "mask2"))
+    p = "update_block_pose"
+    for c in ("convc1", "convc2", "convp1", "convp2", "convp"):
+        rows += conv_map(f"{p}.encoder.{c}", (p, "encoder", c))
+    rows += sep_conv_gru_map(f"{p}.pose_gru", (p, "pose_gru"))
+    rows += conv_map(f"{p}.pose_head.conv1_pose", (p, "pose_head", "conv1"))
+    rows += conv_map(f"{p}.pose_head.conv2_pose", (p, "pose_head", "conv2"))
     return rows
 
 
@@ -179,17 +249,37 @@ def _from_flax(kind: str, value: np.ndarray) -> np.ndarray:
     raise ValueError(kind)
 
 
+def _convert(tree: dict, rows, prefix: str) -> dict:
+    state = {}
+    for key, path, kind in rows:
+        node = tree
+        for part in path:
+            node = node[part]
+        state[prefix + key] = torch.tensor(np.ascontiguousarray(_from_flax(kind, np.asarray(node))))
+    return state
+
+
 def params_from_jax(flax_params: dict, encoder_cfg) -> dict:
     """flax PixelSplat params (nested dicts of numpy arrays, as
     `model.init` returns them, with or without the 'params' level) -> a
     state_dict for the port's PixelSplat."""
     tree = flax_params.get("params", flax_params)["encoder"]
-    state = {}
-    for key, path, kind in encoder_name_map(encoder_cfg):
-        node = tree
-        for part in path:
-            node = node[part]
-        state["encoder." + key] = torch.tensor(np.ascontiguousarray(_from_flax(kind, np.asarray(node))))
+    return _convert(tree, encoder_name_map(encoder_cfg), "encoder.")
+
+
+def iponet_params_from_jax(flax_params: dict, iponet_cfg) -> dict:
+    """flax IPONet params -> a state_dict for the port's IPONet."""
+    tree = flax_params.get("params", flax_params)
+    return _convert(tree, depth_pose_net_name_map(iponet_cfg.feat_ratio), "")
+
+
+def ggrt_params_from_jax(flax_params: dict, cfg) -> dict:
+    """The JAX package's whole GGRtModel params, {"params": {"pose_learner",
+    "gaussian"}} as numpy -> a state_dict for the port's GGRtModel."""
+    tree = flax_params.get("params", flax_params)
+    state = {"pose_learner." + k: v
+             for k, v in iponet_params_from_jax(tree["pose_learner"], cfg.iponet).items()}
+    state.update({"gaussian." + k: v for k, v in params_from_jax(tree["gaussian"], cfg.encoder).items()})
     return state
 
 
