@@ -5,14 +5,15 @@
 Phases; each one that fails stops the run with a non-zero exit:
   1. card:   name and power limit from nvidia-smi; TF32 off in cuDNN and
              cuBLAS (the reference computes in float32).
-  2. build:  nvcc builds the three kernels from ggrt_official_torch/csrc/,
+  2. build:  nvcc builds the four kernels from ggrt_official_torch/csrc/,
              one process each, all at once.
   3. kernels: each kernel against its plain PyTorch version. The forward
              and backward compositors on the records of a real full-width
              render (160 tiles of 8x128, K = 1024) and on a ragged case
              (16x16 tiles, some lists empty, some < 128); the segment-sum
              scatter on the record ids of a full-width train-step render
-             (3,440,640 Gaussians, dead entries sent to the dump row).
+             (3,440,640 Gaussians, dead entries sent to the dump row). The
+             banked gather is checked in phase 6, on its real streams.
   4. serve:  PixelSplat at pretrain_config() width with seeded random
              weights renders 3 requests (synthetic scenes at 320x448, 5
              source views -> 4 context pairs -> 1,146,880 Gaussians, 1
@@ -31,12 +32,32 @@ Phases; each one that fails stops the run with a non-zero exit:
              'joint' and 'nerf_only' the rgb loss is back-propagated, so the
              backward and the scatter once; in 'pose_only' the loss is the
              SfM term alone and neither runs.
-  6. timing: request and step ms (host clock around synchronised work),
+  6. raster: the rasterizer's own entry point as bench.py drives it, at
+             its two scales: 320x448 with 860,160 Gaussians and 640x960
+             with 3,686,400 (3 per pixel x 2 pairs, SH degree 4, drawn from
+             a seeded generator on the card to bench.py's distributions).
+             At each: K from choose_max_per_tile (45 dB, max_dup 8); at
+             320x448 the bench's gate (a 64x128 render of the first 4096
+             Gaussians, "cuda" against "tiled", both banked); the banked
+             gather kernel against its plain version on this scale's real
+             streams (bit for bit) and the flat merge's lists against the
+             per-slot sort merge's; the forward and backward compositors on
+             the records of those lists and the scatter on their record ids
+             against their plain versions, with phase 3's tolerances; then
+             one warm-up and 10 (320x448) or 5
+             (640x960) timed fwd+bwd steps of mean(render**2) with
+             backend "cuda", banked binning, max_dup 8, tile_chunk 16 —
+             finite gradients for means, covariances, SH, opacities and
+             extrinsics, and launches (banked_gather, composite_fwd,
+             composite_bwd, segment_sum) = (1, 1, 1, 1) per step; the
+             overflow statistics at the K used.
+  7. timing: request and step ms (host clock around synchronised work),
              per-kernel ms (CUDA events), bound, plain-version ms and the
              library call's ms where there is one, peak memory — each line
              with the card's name and power limit.
-  7. profile: one more request and one more train step under
-             torch.profiler; the ops that take the most device time.
+  8. profile: one more request, one more train step and one more raster
+             step at each scale under torch.profiler; the kernels and ops
+             that take the most device time.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or outside a checkout
 of the repository, it prints no result and exits non-zero.
@@ -60,8 +81,13 @@ OPS_PER_EVAL = 21            # ~20 FLOP + 1 exp per (pixel, Gaussian) evaluation
 OPS_PER_EVAL_BWD = 61
 IMAGE = (320, 448)
 TRAIN_MACHINES = ("joint", "joint", "joint", "nerf_only", "pose_only")
-# Launches each train step makes: (composite_fwd, composite_bwd, segment_sum).
-STEP_LAUNCHES = {"joint": (2, 1, 1), "nerf_only": (2, 1, 1), "pose_only": (2, 0, 0)}
+# Launches each train step makes: (composite_fwd, composite_bwd, segment_sum,
+# banked_gather).
+STEP_LAUNCHES = {"joint": (2, 1, 1, 0), "nerf_only": (2, 1, 1, 0), "pose_only": (2, 0, 0, 0)}
+# The rasterizer's entry point at bench.py's two scales: (image, timed steps).
+RASTER_SCALES = (((320, 448), 10), ((640, 960), 5))
+# Launches per raster fwd+bwd step, in the same order as STEP_LAUNCHES.
+RASTER_STEP_LAUNCHES = (1, 1, 1, 1)
 
 
 def fail(msg: str) -> None:
@@ -110,6 +136,61 @@ def check_grads(name, a, b):
     return mx
 
 
+def check_compositors(fwd, bwd, rec, col, cnt, tile, gen):
+    """The forward and backward compositor kernels against their plain
+    versions on the records (rec, col, cnt): the images and T by
+    check_images, nexec equal on every tile, and the gradients of random
+    cotangents by check_grads. Returns the forward's and the backward's
+    largest disagreement and the forward's outputs with the cotangents."""
+    import torch
+
+    from ggrt_official_torch.ops.rasterizer import cuda_composite as cc
+
+    kern = fwd(rec, col, cnt, *tile)
+    torch.cuda.synchronize()
+    plain = cc.composite_records_plain(rec, col, cnt, *tile)
+    print("  forward:")
+    mx = max(check_images("acc", kern[0], plain[0]), check_images("tfin", kern[1], plain[1]))
+    agree = int((kern[3] == plain[3]).sum())
+    print(f"  nexec agrees on {agree} of {kern[3].numel()} tiles (chunks run: min "
+          f"{int(kern[3].min())}, max {int(kern[3].max())} of {rec.shape[2] // 128})")
+    if agree != kern[3].numel():
+        fail("nexec differs from the plain version's")
+    acc, tfin, tst, nexec = kern
+    gout = torch.randn(acc.shape, generator=gen, device=acc.device)
+    gtfin = torch.randn(tfin.shape, generator=gen, device=acc.device)
+    dk = bwd(rec, col, tst, nexec, tfin, gout, gtfin, *tile)
+    torch.cuda.synchronize()
+    dp = cc.composite_bwd_plain(rec, col, tst, nexec, tfin, gout, gtfin, *tile)
+    print("  backward:")
+    mxb = max(check_grads("drec", dk[0], dp[0]), check_grads("dcol", dk[1], dp[1]))
+    return mx, mxb, dict(nexec=nexec, tst=tst, tfin=tfin, gout=gout, gtfin=gtfin)
+
+
+def check_segment_sum(seg, ids, vals, g):
+    """The segment-sum kernel against its plain version on (ids, vals) into
+    g rows (ids == g is the dump row); returns the largest disagreement."""
+    import torch
+
+    from ggrt_official_torch.ops.rasterizer import segment_sum as ss
+
+    out_k = seg(ids, vals, g)
+    torch.cuda.synchronize()
+    out_p = ss.scatter_add_rows_plain(ids, vals, g)
+    mag = ss.scatter_add_rows_plain(ids, vals.abs(), g)
+    n_max = int(torch.bincount(ids.long(), minlength=g + 1)[:g].max())
+    # Float atomics in a varying order: a row of n terms agrees to
+    # (n-1)·2^-24 of the sum of their magnitudes.
+    e = (out_k - out_p).abs()
+    bad = int((e > (n_max - 1) * 2.0**-24 * mag + 1e-30).sum())
+    print(f"  segment_sum: N={ids.shape[0]} rows, {int((ids < g).sum())} live, g={g}; max abs "
+          f"{e.max().item():.3e}, mean abs {e.mean().item():.3e}, {bad} entries past "
+          f"(n-1)·2^-24·sum|v| with n <= {n_max}")
+    if bad:
+        fail("segment_sum disagrees with the plain version")
+    return e.max().item()
+
+
 def counts(*kernels):
     return tuple(k.launches for k in kernels)
 
@@ -120,11 +201,16 @@ def reset(*kernels):
 
 
 def cuda_ms(fn, iters: int) -> float:
+    """Device ms per call of `fn`, by CUDA events around `iters` calls. The
+    calls are queued behind a ~10 ms spin kernel, so a kernel shorter than
+    its own launch overhead is timed on the card, not at the host's
+    launch rate."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -180,6 +266,184 @@ def small_config(config):
     })
 
 
+def bench_inputs(image_shape, device, seed: int = 0, gpp: int = 3, pairs: int = 2):
+    """bench.py's scene (bench.py:29-54): gpp Gaussians per pixel for each of
+    `pairs` context pairs, uniform means in front of an identity camera,
+    pixel-scale isotropic covariances, SH degree 4, drawn from a seeded
+    generator on the card."""
+    import torch
+
+    h, w = image_shape
+    g = h * w * gpp * pairs
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def uniform(shape, lo, hi):
+        return torch.rand(shape, generator=gen, device=device) * (hi - lo) + lo
+
+    means = torch.stack([uniform((1, g), -2.0, 2.0), uniform((1, g), -1.5, 1.5),
+                         uniform((1, g), 1.2, 8.0)], dim=-1)
+    scales = uniform((1, g, 3), 0.002, 0.02)
+    cov = torch.eye(3, device=device)[None, None] * scales[..., None] ** 2
+    sh = torch.randn((1, g, 3, 25), generator=gen, device=device) * 0.2
+    opa = uniform((1, g), 0.05, 0.9)
+    cams = dict(
+        extrinsics=torch.eye(4, device=device)[None],
+        intrinsics=torch.tensor([[[1.2, 0.0, 0.5], [0.0, 1.2, 0.5], [0.0, 0.0, 1.0]]], device=device),
+        near=torch.ones(1, device=device), far=torch.full((1,), 20.0, device=device),
+        background=torch.zeros(1, 3, device=device),
+    )
+    return cams, {"means": means, "covariances": cov, "sh_coeffs": sh, "opacities": opa}
+
+
+def banked_gather_bytes(st) -> int:
+    """Least bytes the banked gather moves: both outputs written once, the
+    key and payload words that some window covers read once, and the
+    (al, lo, hi) descriptors."""
+    import torch
+
+    ncol = sum(st.budgets) + 128 * len(st.budgets)
+    widths = torch.tensor([b + 128 for b in st.budgets], device=st.al.device)
+    start = st.al.long() * 128
+    edges = torch.zeros(st.key_sorted.shape[0] + 1, dtype=torch.long, device=st.al.device)
+    edges.index_add_(0, start.reshape(-1), torch.ones_like(start).reshape(-1))
+    edges.index_add_(0, (start + widths).reshape(-1), -torch.ones_like(start).reshape(-1))
+    covered = int((edges.cumsum(0)[:-1] > 0).sum())
+    return 8 * st.num_tiles * ncol + 8 * covered + 12 * st.al.numel()
+
+
+def raster_phase(kernels, tag: str, device: str = "cuda") -> dict:
+    """Phase 6: `api.render` at bench.py's two scales. Returns, per scale,
+    what the timing phase needs: the kernel's streams, the step times, the
+    launches of the timed steps and the kernel's largest disagreement."""
+    import torch
+
+    from ggrt_official_torch.ops.rasterizer import api, projection, tiling
+    from ggrt_official_torch.ops.rasterizer import banked_gather as bg
+    from ggrt_official_torch.ops.rasterizer import cuda_composite as cc
+
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    out = {}
+    for image, n_steps in RASTER_SCALES:
+        h, w = image
+        cams, leaves = bench_inputs(image, dev)
+        g = leaves["means"].shape[1]
+        name = f"{h}x{w}"
+        cam_args = lambda c: (c["extrinsics"], c["intrinsics"], c["near"], c["far"])
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        policy = api.choose_max_per_tile(*cam_args(cams), image, cams["background"],
+                                         *leaves.values(), target_db=45.0, max_dup=8)
+        torch.cuda.synchronize()
+        print(f"raster {name}: {g} Gaussians; choose_max_per_tile {json.dumps(policy)} in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        K = policy["max_per_tile"]
+        kw = dict(max_per_tile=K, max_dup=8, tile_chunk=16, binning_mode="banked")
+
+        with torch.no_grad():
+            if image == (320, 448):
+                # bench.py's own gate (bench.py:121-135): the kernel compositor
+                # against the plain tiled one on a small scene, both banked.
+                small = [x[:, :4096] for x in leaves.values()]
+                img_k = api.render(*cam_args(cams), (64, 128), cams["background"], *small,
+                                   backend="cuda", **kw)
+                img_t = api.render(*cam_args(cams), (64, 128), cams["background"], *small,
+                                   backend="tiled", **kw)
+                mean, share, mx = image_errors(img_k, img_t)
+                print(f"  bench gate 64x128, 4096 Gaussians, cuda against tiled: mean abs "
+                      f"{mean:.3e}, outlier share {share:.3e}, max abs {mx:.3e}")
+                if not (mean < 1e-4 and share < 2e-3):
+                    fail("the bench gate: the kernel compositor disagrees with the tiled one")
+
+            # The kernel against its plain version on this scale's streams.
+            pg = projection.project_gaussians(
+                *(x[0] for x in leaves.values()), *(x[0] for x in cam_args(cams)), image)
+            st = tiling.banked_streams(pg, image, 8, K)
+            skw = dict(budgets=st.budgets, dydx=st.dydx, qbits=st.qbits, num_tiles=st.num_tiles)
+            pk, gid = kernels[3](*st[:5], **skw)
+            torch.cuda.synchronize()
+            pk_p, gid_p = bg.gather_streams_plain(*st[:5], **skw)
+            same = torch.equal(pk, pk_p) and torch.equal(gid, gid_p)
+            err = max(int((pk.long() - pk_p.long()).abs().max()),
+                      int((gid.long() - gid_p.long()).abs().max()))
+            n_valid = int((gid != bg.INVALID_GID).sum())
+            print(f"  banked_gather: {st.num_tiles} tiles x {len(st.budgets)} slots, budgets "
+                  f"{list(st.budgets)}, ncol {pk.shape[1]}, {n_valid} valid entries; kernel "
+                  f"{'equals' if same else 'DIFFERS FROM'} the plain version bit for bit")
+            if not same:
+                fail(f"banked_gather disagrees with its plain version at {name}")
+            flat = tiling.bin_gaussians_banked(pg, image, 8, K, merge="flat")
+            sort = tiling.bin_gaussians_banked(pg, image, 8, K, merge="sort")
+            lists_equal = (torch.equal(flat.gaussian_ids, sort.gaussian_ids)
+                           and torch.equal(flat.counts, sort.counts))
+            print(f"  lists, flat merge (kernel) against sort merge (per-slot): "
+                  f"{'equal' if lists_equal else 'DIFFERENT'}; counts min {int(flat.counts.min())} "
+                  f"max {int(flat.counts.max())}")
+            if not lists_equal:
+                fail(f"banked flat lists differ from the sort merge's at {name}")
+            # The compositors and the scatter on this scale's own records and
+            # record ids, those the step below gives them.
+            rec, col, cnt = cc.build_records(pg, flat)
+            print(f"  compositors on the step's records ({rec.shape[0]} tiles x K={rec.shape[2]}):")
+            mx, mxb, _ = check_compositors(kernels[0], kernels[1], rec, col, cnt, (8, 128), gen)
+            ids = torch.where(flat.gaussian_ids >= 0, flat.gaussian_ids, g).reshape(-1).to(torch.int32)
+            vals = torch.randn(ids.shape[0], 9, generator=gen, device=dev)
+            mxs = check_segment_sum(kernels[2], ids, vals, g)
+            stats = tiling.binning_overflow_stats(pg, image, max_dup=8, max_per_tile=K)
+            del flat, sort, pk_p, gid_p, rec, col, cnt, ids, vals
+
+        step = raster_step(api, cams, leaves, image, kw)
+        finite = [step()]  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset(*kernels)
+        made, each_ms = [], []
+        for _ in range(n_steps):
+            before = counts(*kernels)
+            t0 = time.perf_counter()
+            finite.append(step())
+            torch.cuda.synchronize()
+            each_ms.append((time.perf_counter() - t0) * 1e3)
+            made.append(tuple(a - b for a, b in zip(counts(*kernels), before)))
+        step_ms = sum(each_ms) / n_steps
+        launches = counts(*kernels)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if not all(bool(f) for f in finite):
+            fail(f"raster {name}: a non-finite gradient")
+        if any(m != RASTER_STEP_LAUNCHES for m in made):
+            fail(f"raster {name}: launches per step (fwd, bwd, scatter, gather) {made}, "
+                 f"not {RASTER_STEP_LAUNCHES}")
+        print(f"  steps: {n_steps} fwd+bwd after one warm-up, {step_ms:.3f} ms per step (min "
+              f"{min(each_ms):.3f}, max {max(each_ms):.3f}), {h * w / step_ms * 1e3:.1f} pixels/s, "
+              f"peak {peak:.2f} GiB; gradients finite; launches (fwd, bwd, scatter, gather) "
+              f"{RASTER_STEP_LAUNCHES} per step {tag}")
+        print(f"  overflow at K={K}: " + ", ".join(f"{k} {float(v):.6g}" for k, v in stats.items()),
+              flush=True)
+        out[name] = dict(streams=st, step_ms=step_ms, each_ms=each_ms, launches=launches, step=step,
+                         err={"banked_gather": err, "composite_fwd": mx, "composite_bwd": mxb,
+                              "segment_sum": mxs})
+    return out
+
+
+def raster_step(api, cams, leaves, image, kw):
+    """bench.py's step: gradients of mean(render**2) for means, covariances,
+    SH, opacities and extrinsics; returns whether all are finite (on the
+    card, unread)."""
+    import torch
+
+    params = [x.clone().requires_grad_(True) for x in (*leaves.values(), cams["extrinsics"])]
+
+    def step():
+        m, c, sh, o, e = params
+        img = api.render(e, cams["intrinsics"], cams["near"], cams["far"], image,
+                         cams["background"], m, c, sh, o, backend="cuda", **kw)
+        grads = torch.autograd.grad((img ** 2).mean(), params)
+        return torch.stack([torch.isfinite(x).all() for x in grads]).all()
+
+    return step
+
+
 def main() -> None:
     import torch
 
@@ -195,14 +459,15 @@ def main() -> None:
     from ggrt_official_torch.models.decoder_splatting import effective_max_per_tile
     from ggrt_official_torch.models.pixelsplat import PixelSplat
     from ggrt_official_torch.ops.cuda_kernel import build_all
+    from ggrt_official_torch.ops.rasterizer import banked_gather as bg
     from ggrt_official_torch.ops.rasterizer import cuda_composite as cc
     from ggrt_official_torch.ops.rasterizer import projection, tiling
     from ggrt_official_torch.ops.rasterizer import segment_sum as ss
     from ggrt_official_torch.training.trainer import GGRtTrainer
 
     dev = torch.device("cuda")
-    fwd, bwd, seg = cc.composite_fwd, cc.composite_bwd, ss.scatter_add_rows
-    kernels = (fwd, bwd, seg)
+    fwd, bwd, seg, gat = cc.composite_fwd, cc.composite_bwd, ss.scatter_add_rows, bg.gather_streams
+    kernels = (fwd, bwd, seg, gat)
 
     # 1. card
     smi = subprocess.run(
@@ -271,26 +536,11 @@ def main() -> None:
         fwd_out = {}
         for name, (rec, col, cnt), tile in (("full 8x128", full, (8, 128)),
                                            ("ragged 16x16", ragged, (16, 16))):
-            kern = fwd(rec, col, cnt, *tile)
-            torch.cuda.synchronize()
-            plain = cc.composite_records_plain(rec, col, cnt, *tile)
-            print(f" forward, case {name}:")
-            mx = max(check_images("acc", kern[0], plain[0]), check_images("tfin", kern[1], plain[1]))
-            agree = int((kern[3] == plain[3]).sum())
-            print(f"  nexec agrees on {agree} of {kern[3].numel()} tiles")
-            if agree != kern[3].numel():
-                fail("nexec differs from the plain version's")
-            acc, tfin, tst, nexec = kern
-            gout = torch.randn(acc.shape, generator=gen, device=dev)
-            gtfin = torch.randn(tfin.shape, generator=gen, device=dev)
-            dk = bwd(rec, col, tst, nexec, tfin, gout, gtfin, *tile)
-            torch.cuda.synchronize()
-            dp = cc.composite_bwd_plain(rec, col, tst, nexec, tfin, gout, gtfin, *tile)
-            print(f" backward, case {name}:")
-            mxb = max(check_grads("drec", dk[0], dp[0]), check_grads("dcol", dk[1], dp[1]))
+            print(f" compositors, case {name}:")
+            mx, mxb, outs = check_compositors(fwd, bwd, rec, col, cnt, tile, gen)
             if name.startswith("full"):
                 err["composite_fwd"], err["composite_bwd"] = mx, mxb
-                fwd_out = dict(nexec=nexec, tst=tst, tfin=tfin, gout=gout, gtfin=gtfin)
+                fwd_out = outs
 
         # The train step's Gaussians: 3 per pixel, drawn with seeded uniforms.
         enc = cfg.encoder
@@ -304,25 +554,12 @@ def main() -> None:
                                   effective_max_per_tile(cfg.decoder, g_train, IMAGE))
         ids = torch.where(bt.gaussian_ids >= 0, bt.gaussian_ids, g_train).reshape(-1).to(torch.int32)
         vals = torch.randn(ids.shape[0], 9, generator=gen, device=dev)
-        print(f" segment_sum: N={ids.shape[0]} rows, {int((ids < g_train).sum())} live, g={g_train}")
         if g_train != 3_440_640:
             fail(f"the train-step render has {g_train} Gaussians, not 3,440,640")
-        out_k = seg(ids, vals, g_train)
-        torch.cuda.synchronize()
-        out_p = ss.scatter_add_rows_plain(ids, vals, g_train)
-        mag = ss.scatter_add_rows_plain(ids, vals.abs(), g_train)
-        n_max = int(torch.bincount(ids.long(), minlength=g_train + 1)[:g_train].max())
-        # Float atomics in a varying order: a row of n terms agrees to
-        # (n-1)·2^-24 of the sum of their magnitudes.
-        e = (out_k - out_p).abs()
-        bad = int((e > (n_max - 1) * 2.0**-24 * mag + 1e-30).sum())
-        print(f"  out: max abs {e.max().item():.3e}, mean abs {e.mean().item():.3e}, "
-              f"{bad} entries past (n-1)·2^-24·sum|v| with n <= {n_max}")
-        if bad:
-            fail("segment_sum disagrees with the plain version")
-        err["segment_sum"] = e.max().item()
+        print(" train-step scatter:")
+        err["segment_sum"] = check_segment_sum(seg, ids, vals, g_train)
         seg_args = (ids, vals, g_train)
-        del gt, bt, out_k, out_p, mag, uni
+        del gt, bt, uni
     print("kernels: ok", flush=True)
 
     # 4. serve: reset the counts, drive the serving path, read the counts.
@@ -345,8 +582,8 @@ def main() -> None:
             if not (torch.isfinite(rgb).all() and torch.isfinite(depth).all()):
                 fail(f"request {i}: non-finite output")
             made = tuple(a - b for a, b in zip(counts(*kernels), before))
-            if made != (2, 0, 0):
-                fail(f"request {i}: launches (fwd, bwd, scatter) {made}, not (2, 0, 0)")
+            if made != (2, 0, 0, 0):
+                fail(f"request {i}: launches (fwd, bwd, scatter, gather) {made}, not (2, 0, 0, 0)")
             print(f"serve: request {i} rgb mean {rgb.mean().item():.4f} depth mean "
                   f"{depth.mean().item():.4f}, 2 kernel launches")
         launches["serve"] = counts(*kernels)
@@ -398,7 +635,7 @@ def main() -> None:
         moved = {k: max(float((p.detach() - q).abs().max()) for p, q in zip(groups[k], snap[k]))
                  for k in groups}
         print(f"train: step {i} {machine}: " + ", ".join(f"{k} {x:.6f}" for k, x in vals4.items())
-              + f"; launches (fwd, bwd, scatter) {made}; max |update| "
+              + f"; launches (fwd, bwd, scatter, gather) {made}; max |update| "
               + ", ".join(f"{k} {x:.3e}" for k, x in moved.items()), flush=True)
         if not all(math.isfinite(x) for x in vals4.values()):
             fail(f"train step {i} ({machine}): non-finite loss")
@@ -412,7 +649,16 @@ def main() -> None:
     train_peak_gib = torch.cuda.max_memory_allocated() / 2**30
     print("train: ok", flush=True)
 
-    # 6. timing
+    # 6. raster: the rasterizer's own entry point at bench.py's two scales.
+    t0 = time.perf_counter()
+    raster = raster_phase(kernels, tag)
+    launches["raster"] = tuple(sum(x) for x in zip(*(r["launches"] for r in raster.values())))
+    for r in raster.values():
+        for name, e in r["err"].items():
+            err[name] = max(err.get(name, 0.0), e)
+    print(f"raster: ok in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 7. timing
     rec, col, cnt = full
     fo = fwd_out
     P, nch, t = 8 * 128, rec.shape[2] // 128, rec.shape[0]
@@ -449,23 +695,41 @@ def main() -> None:
             f"{seg_args[1].numel() / 1e6:.2f}M adds",
         ),
     }
+    for name, r in raster.items():
+        st = r["streams"]
+        skw = dict(budgets=st.budgets, dydx=st.dydx, qbits=st.qbits, num_tiles=st.num_tiles)
+        ncol = sum(st.budgets) + 128 * len(st.budgets)
+        timing[f"banked_gather {name}"] = (
+            lambda st=st, skw=skw: gat.launch(*st[:5], **skw),
+            lambda st=st, skw=skw: bg.gather_streams_plain(*st[:5], **skw),
+            None,
+            bound(10 * st.num_tiles * ncol, banked_gather_bytes(st)),
+            f"{st.num_tiles} x {ncol} columns x 10 integer operations",
+        )
     for name, (kern_fn, plain_fn, lib_fn, (bound_ms, bound_by, ops_ms, bytes_ms), work) in timing.items():
         ms = cuda_ms(kern_fn, 20)
         plain_ms = cuda_ms(plain_fn, 3)
         library_ms = cuda_ms(lib_fn, 20) if lib_fn else None
         rows.append((name, ms, plain_ms, library_ms, bound_ms, bound_by))
-        print(f"timing: {name} {ms:.4f} ms per launch (20 launches, CUDA events); bound {bound_ms:.4f} ms "
+        print(f"timing: {name} {ms!r} ms per launch (20 launches, CUDA events); bound {bound_ms!r} ms "
               f"by {bound_by} ({work} at 67 TFLOP/s = {ops_ms:.4f} ms; bytes at 3.35 TB/s = "
-              f"{bytes_ms:.4f} ms); plain {plain_ms:.3f} ms; library "
-              f"{'none' if library_ms is None else f'{library_ms:.4f} ms (index_add_)'} {tag}")
+              f"{bytes_ms:.4f} ms); plain {plain_ms!r} ms; library "
+              f"{'none' if library_ms is None else f'{library_ms!r} ms (index_add_)'} {tag}")
     print(f"timing: request ms {', '.join(f'{x:.1f}' for x in request_ms)} {tag}")
     print(f"timing: step ms {', '.join(f'{m} {x:.1f}' for m, x in step_ms)} "
           f"(after one warm-up step) {tag}")
     print(f"timing: peak memory {serve_peak_gib:.2f} GiB over the 3 requests, {train_peak_gib:.2f} GiB "
           f"over the {len(TRAIN_MACHINES)} train steps {tag}")
-    print(f"timing: launches (fwd, bwd, scatter): serve {launches['serve']}, train {launches['train']}")
+    for name, r in raster.items():
+        h, w = (int(x) for x in name.split("x"))
+        print(f"timing: raster {name} fwd+bwd step {r['step_ms']!r} ms (each: "
+              f"{', '.join(repr(x) for x in r['each_ms'])}), {h * w / r['step_ms'] * 1e3!r} "
+              f"pixels/s {tag}")
+    print(f"timing: launches (fwd, bwd, scatter, gather): serve {launches['serve']}, train "
+          f"{launches['train']}, raster {launches['raster']}")
 
-    # 7. where the time goes: one profiled request and one profiled train
+    # 8. where the time goes: one profiled request and one profiled train
+
     # step (not counted in the main paths above).
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -493,6 +757,12 @@ def main() -> None:
         trainer.train_iteration(scenes[-2], "joint")
         torch.cuda.synchronize()
     show(prof, "one joint train step", (time.perf_counter() - t0) * 1e3)
+    for name, r in raster.items():
+        with profile(activities=activities, record_shapes=True) as prof:
+            t0 = time.perf_counter()
+            r["step"]()
+            torch.cuda.synchronize()
+        show(prof, f"one raster fwd+bwd step at {name}", (time.perf_counter() - t0) * 1e3)
 
     sources = {
         "composite_fwd": ("ggrt_official_torch/csrc/composite_fwd.cu",
@@ -501,17 +771,25 @@ def main() -> None:
                           "ggrt_official_tpu/ops/rasterizer/pallas_composite.py:172"),
         "segment_sum": ("ggrt_official_torch/csrc/segment_sum.cu",
                         "ggrt_official_tpu/ops/rasterizer/segment_sum.py:51"),
+        "banked_gather": ("ggrt_official_torch/csrc/banked_gather.cu",
+                          "ggrt_official_tpu/ops/rasterizer/banked_gather.py:52"),
     }
     table = []
-    for i, (name, ms, plain_ms, library_ms, bound_ms, bound_by) in enumerate(rows):
-        n = launches["serve"][i] + launches["train"][i]
+    # One row per kernel; the banked gather's at bench.py's headline scale.
+    for row in rows:
+        name, ms, plain_ms, library_ms, bound_ms, bound_by = row
+        if name == "banked_gather 640x960":
+            continue
+        name = name.split()[0]
+        i = [k.source.stem for k in kernels].index(name)
+        n = sum(launches[path][i] for path in launches)
         table.append({
             "name": name, "route": "cuda", "source": sources[name][0], "replaces": sources[name][1],
             "launches": n, "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
         })
-    if not all(launches["train"]) or not launches["serve"][0]:
-        fail(f"a kernel of a path was not launched: serve {launches['serve']}, train {launches['train']}")
+    if not (launches["serve"][0] and all(launches["train"][:3]) and all(launches["raster"])):
+        fail(f"a kernel of a path was not launched: {launches}")
     print(smi)
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

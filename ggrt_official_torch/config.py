@@ -7,8 +7,8 @@ are applied with `load_config` / `apply_overrides`.
 
 One field differs: `DecoderCfg.backend` defaults to "cuda" (the hand-written
 Hopper compositor). "pallas" is accepted as its synonym so configs written
-for the JAX package load unchanged; "tiled" and "reference" are not ported
-yet and raise NotImplementedError when a render is asked of them.
+for the JAX package load unchanged; "tiled" and "reference" are the plain
+PyTorch backends, as in the JAX package.
 """
 from __future__ import annotations
 

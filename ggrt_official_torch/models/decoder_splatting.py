@@ -68,17 +68,17 @@ class DecoderSplatting:
             flat(extrinsics), flat(intrinsics), flat(near), flat(far), image_shape,
             torch.zeros((b * v, 3), dtype=extrinsics.dtype, device=extrinsics.device),
             rep(gaussians.means), rep(gaussians.covariances),
-            rep(gaussians.harmonics), rep(gaussians.opacities), **kw,
+            rep(gaussians.harmonics), rep(gaussians.opacities),
+            tile_chunk=self.cfg.tile_chunk, **kw,
         )
         color = color.reshape(b, v, *color.shape[1:])
 
         depth = None
         if depth_mode is not None:
-            if depth_mode != "depth":
-                raise NotImplementedError(f"depth mode {depth_mode!r} is not ported yet")
             depth = raster.render_depth(
                 flat(extrinsics), flat(intrinsics), flat(near), flat(far), image_shape,
-                rep(gaussians.means), rep(gaussians.covariances), rep(gaussians.opacities), **kw,
+                rep(gaussians.means), rep(gaussians.covariances), rep(gaussians.opacities),
+                mode=depth_mode, **kw,
             )
             depth = depth.reshape(b, v, *depth.shape[1:])
         return DecoderOutput(color=color, depth=depth)

@@ -1,1 +1,2 @@
-"""Tile-based Gaussian rasterizer with a hand-written CUDA compositor."""
+"""Tile-based Gaussian rasterizer: hand-written CUDA compositor and binning
+kernels, with plain PyTorch versions and backends beside them."""

@@ -1,7 +1,7 @@
 """Card-only tests of the port: the CUDA kernels (forward and backward
-compositor, segment-sum scatter) against their plain PyTorch versions, and
-the rasterizer on the card against the same code on the CPU. Every test
-here needs a CUDA card and skips without one.
+compositor, segment-sum scatter, banked stream gather) against their plain
+PyTorch versions, and the rasterizer on the card against the same code on
+the CPU. Every test here needs a CUDA card and skips without one.
 
 A card-only environment need not have JAX, and tests/conftest.py imports
 it, so run this file without the conftest:
@@ -12,7 +12,9 @@ import numpy as np
 import pytest
 import torch
 
-from ggrt_official_torch.ops.rasterizer import api, cuda_composite, projection, segment_sum, tiling
+from ggrt_official_torch.ops.rasterizer import (
+    api, banked_gather, cuda_composite, projection, segment_sum, tiling,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -241,3 +243,78 @@ def test_render_matches_cpu(cuda):
     rgb_c, depth_c = both("cpu")
     image_close(rgb_g, rgb_c)
     image_close(depth_g, depth_c)
+
+
+@pytest.mark.parametrize("shape", [(64, 256), (64, 96)], ids=["ntx2", "ntx1"])
+def test_banked_gather_matches_plain(cuda, shape):
+    """Bit for bit, at two tiles across (window 2x4) and one (window 1x8),
+    on streams that a K of 128 truncates."""
+    sc = scene(n=20000)
+    pg = projection.project_gaussians(*(sc[k].to(cuda) for k in ARGS), shape)
+    st = tiling.banked_streams(pg, shape, 8, 128)
+    assert len(st.budgets) == 8 and (st.hi - st.lo).max() == 128
+    kw = dict(budgets=st.budgets, dydx=st.dydx, qbits=st.qbits, num_tiles=st.num_tiles)
+    launches = banked_gather.gather_streams.launches
+    pk, gid = banked_gather.gather_streams(*st[:5], **kw)
+    torch.cuda.synchronize()
+    assert banked_gather.gather_streams.launches == launches + 1
+    pk_p, gid_p = banked_gather.gather_streams_plain(*st[:5], **kw)
+    assert torch.equal(pk, pk_p) and torch.equal(gid, gid_p)
+    assert (gid != banked_gather.INVALID_GID).any()
+    # The lists through the kernel equal the per-slot branch's.
+    flat = tiling.bin_gaussians_banked(pg, shape, 8, 128, merge="flat")
+    sort = tiling.bin_gaussians_banked(pg, shape, 8, 128, merge="sort")
+    assert torch.equal(flat.gaussian_ids, sort.gaussian_ids) and torch.equal(flat.counts, sort.counts)
+
+
+def test_banked_render_matches_cpu(cuda):
+    """A banked render with the kernel compositor, and its gradients, on
+    the card against the CPU path."""
+    sc = scene()
+    kw = dict(max_per_tile=512, max_dup=8, binning_mode="banked")
+
+    def run(d):
+        cams = [sc[k][None].to(d) for k in ("extrinsics", "intrinsics", "near", "far")]
+        leaves = [sc[k][None].to(d).requires_grad_(True)
+                  for k in ("means", "covariances", "sh_coeffs", "opacities")]
+        rgb = api.render(*cams, SHAPE, torch.zeros(1, 3, device=d), *leaves, **kw)
+        return rgb, torch.autograd.grad((rgb ** 2).mean(), leaves)
+
+    launches = banked_gather.gather_streams.launches
+    rgb_g, grads_g = run(cuda)
+    assert banked_gather.gather_streams.launches == launches + 1
+    rgb_c, grads_c = run("cpu")
+    image_close(rgb_g.detach(), rgb_c.detach())
+    for a, b in zip(grads_g, grads_c):
+        grad_close(a, b)
+
+
+def test_banked_gather_rejects_bad_input(cuda):
+    sc = scene()
+    pg = projection.project_gaussians(*(sc[k].to(cuda) for k in ARGS), SHAPE)
+    st = tiling.banked_streams(pg, SHAPE, 8, 128)
+    kw = dict(budgets=st.budgets, dydx=st.dydx, qbits=st.qbits, num_tiles=st.num_tiles)
+    gather = banked_gather.gather_streams
+    gather(*st[:5], **kw)
+    strided = torch.stack([st.al, st.al], dim=-1)[..., 0]
+    for i, bad in ((0, st.key_sorted.long()), (1, st.gw_sorted.cpu()), (2, strided),
+                   (3, st.lo.float()), (4, st.hi.t().contiguous().t())):
+        args = list(st[:5])
+        args[i] = bad
+        with pytest.raises(ValueError):
+            gather(*args, **kw)
+    # Streams cut short of the last window: the wrapper checks shapes only
+    # (no wait for the card), and the kernel reads every position past the
+    # end as no entry.
+    n = 200
+    launches = gather.launches
+    pk, gid = gather(st.key_sorted[:n], st.gw_sorted[:n], *st[2:5], **kw)
+    torch.cuda.synchronize()
+    assert gather.launches == launches + 1
+    pos = torch.cat([st.al[:, s, None].long() * 128 + torch.arange(b + 128, device=cuda)[None]
+                     for s, b in enumerate(st.budgets)], dim=1)
+    assert (pos >= n).any()
+    assert (gid[pos >= n] == banked_gather.INVALID_GID).all()
+    full_pk, full_gid = gather(*st[:5], **kw)
+    inside = pos < n
+    assert torch.equal(gid[inside], full_gid[inside]) and torch.equal(pk[inside], full_pk[inside])

@@ -210,8 +210,12 @@ def test_backend_names():
     b = tapi.render(*args, SHAPE, *rest, backend="cuda", max_per_tile=128)
     torch.testing.assert_close(a, b, rtol=0, atol=0)
     for name in ("tiled", "reference"):
-        with pytest.raises(NotImplementedError):
-            tapi.render(*args, SHAPE, *rest, backend=name)
+        image_close(tapi.render(*args, SHAPE, *rest, backend=name, max_per_tile=128).numpy(),
+                    b.numpy(), name)
+    with pytest.raises(ValueError):
+        tapi.render(*args, SHAPE, *rest, backend="xla")
+    with pytest.raises(ValueError):
+        tapi.render(*args, SHAPE, *rest, binning_mode="radix")
 
 
 def test_wrapper_rejects_bad_shapes():

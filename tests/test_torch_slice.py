@@ -130,9 +130,9 @@ def test_small_image_capacity_raise(shape, g, expected):
 
 def test_config_backends():
     assert tcfg.DecoderCfg().backend == "cuda"
-    tdec.DecoderSplatting(tcfg.DecoderCfg(backend="pallas"))
-    for name in ("tiled", "reference"):
-        with pytest.raises(NotImplementedError):
-            tdec.DecoderSplatting(tcfg.DecoderCfg(backend=name))
+    for name in ("pallas", "tiled", "reference"):
+        tdec.DecoderSplatting(tcfg.DecoderCfg(backend=name))
+    with pytest.raises(ValueError):
+        tdec.DecoderSplatting(tcfg.DecoderCfg(backend="xla"))
     cfg = tcfg.load_config(overrides={"decoder.max_per_tile": "512", "encoder.predict_opacity": "true"})
     assert cfg.decoder.max_per_tile == 512 and cfg.encoder.predict_opacity is True
