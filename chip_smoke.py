@@ -54,10 +54,17 @@ Phases; each one that fails stops the run with a non-zero exit:
   7. timing: request and step ms (host clock around synchronised work),
              per-kernel ms (CUDA events), bound, plain-version ms and the
              library call's ms where there is one, peak memory — each line
-             with the card's name and power limit.
+             with the card's name and power limit. The compositors are
+             timed at three record sets (the full-width render's, and the
+             step records of both raster scales), each with two bounds: the
+             dense one counts every (pixel, Gaussian) pair of the executed
+             chunks, the live one (the kernel table's) only the pairs with
+             alpha >= 1/255 before the pixel's cut at T < 1e-4 in the
+             chunk; and the share of (warp, Gaussian) pairs that the
+             kernels' footprint test keeps.
   8. profile: one more request, one more train step and one more raster
              step at each scale under torch.profiler; the kernels and ops
-             that take the most device time.
+             that take the most device time, and the compositor kernels.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or outside a checkout
 of the repository, it prints no result and exits non-zero.
@@ -88,6 +95,12 @@ STEP_LAUNCHES = {"joint": (2, 1, 1, 0), "nerf_only": (2, 1, 1, 0), "pose_only": 
 RASTER_SCALES = (((320, 448), 10), ((640, 960), 5))
 # Launches per raster fwd+bwd step, in the same order as STEP_LAUNCHES.
 RASTER_STEP_LAUNCHES = (1, 1, 1, 1)
+
+
+def bound(ops, nbytes):
+    """(least ms, "operations" or "bytes", ops ms, bytes ms) on the card."""
+    ops_ms, bytes_ms = ops / H100_FP32_FLOPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes", ops_ms, bytes_ms
 
 
 def fail(msg: str) -> None:
@@ -189,6 +202,89 @@ def check_segment_sum(seg, ids, vals, g):
     if bad:
         fail("segment_sum disagrees with the plain version")
     return e.max().item()
+
+
+def live_pairs(rec, fo, tile) -> int:
+    """(pixel, Gaussian) pairs of the executed chunks that composite: alpha
+    >= 1/255 while the pixel's running T stays >= 1e-4 within the chunk,
+    in the plain version's arithmetic from the forward's chunk-start T
+    (fo["tst"]), chunk by chunk. The pairs past a pixel's cut in a chunk
+    are evaluated by neither the kernels nor the TPU kernel: the work that
+    these records need of a compositor."""
+    import torch
+
+    from ggrt_official_torch.ops.rasterizer import cuda_composite as cc
+
+    px, py = cc._pixel_basis(*tile, rec.device)
+    px, py = px[None, :, None], py[None, :, None]
+    nexec, n = fo["nexec"], 0
+    for c in range(rec.shape[2] // 128):
+        run = nexec > c
+        if not bool(run.any()):
+            break
+        B = rec[run][:, :, c * 128:(c + 1) * 128]
+        u = px * B[:, 0:1] + py * B[:, 1:2] + B[:, 2:3]
+        v = py * B[:, 3:4] + B[:, 4:5]
+        araw = B[:, 5:6] * torch.exp(-0.5 * (u * u + v * v))
+        take = araw >= cc.ALPHA_MIN
+        alpha = torch.where(take, torch.clamp(araw, max=cc.ALPHA_MAX), torch.zeros_like(araw))
+        TT = fo["tst"][run][:, :, c:c + 1] * torch.cumprod(1.0 - alpha, dim=2)
+        n += int((take & (TT >= cc.T_EPS)).sum())
+    return n
+
+
+def kept_share(rec, nexec, tile) -> float:
+    """Share of the (warp, Gaussian) pairs of the executed chunks that the
+    kernels' footprint test keeps (cuda_composite.warp_keeps_plain)."""
+    import torch
+
+    from ggrt_official_torch.ops.rasterizer import cuda_composite as cc
+
+    keep = cc.warp_keeps_plain(rec, *tile)                        # (t, W, K)
+    run = torch.arange(rec.shape[2], device=rec.device)[None] < nexec[:, None].long() * 128
+    return int((keep & run[:, None]).sum()) / (keep.shape[1] * int(run.sum()))
+
+
+def compositor_timing(fwd, bwd, label, rec, col, cnt, fo, tag) -> dict:
+    """Both compositor kernels on one record set of 8x128 tiles: ms per
+    launch (CUDA events over 20 launches), the live and dense bounds, the
+    kept share. Returns {kernel: {"ms": ms, "bound": bound(...), "dense":
+    bound(...)}}.
+
+    The bytes count what each kernel needs to move: of the executed chunks,
+    record rows 0-5 and colour rows 0-2 read; the forward writes acc, tfin,
+    every chunk's tst and nexec; the backward reads those chunks' tst, tfin,
+    three gout channels and gtfin, and writes record rows 0-5 and colour rows
+    0-2 of those chunks (the wrapper's zeros are not the kernel's)."""
+    tile = (8, 128)
+    t, _, K = rec.shape
+    P, nch = tile[0] * tile[1], K // 128
+    nexec = fo["nexec"]
+    ran = int(nexec.sum())                                        # executed chunks
+    dense = ran * 128 * P
+    live = live_pairs(rec, fo, tile)
+    share = kept_share(rec, nexec, tile)
+    print(f"compositors at {label}: {t} tiles x K={K}, {ran} chunks run; (pixel, Gaussian) pairs "
+          f"of those chunks: dense {dense}, live (alpha >= 1/255 before the pixel's cut) {live} "
+          f"({live / dense!r} of dense); kept share of (warp, Gaussian) pairs {share!r} {tag}")
+    staged = ran * 128 * (6 + 3)                                  # record and colour rows read
+    kernels = {
+        "composite_fwd": (OPS_PER_EVAL, (t + staged + t * P * (4 + 1 + nch) + t) * 4,
+                          lambda: fwd.launch(rec, col, cnt, *tile)),
+        "composite_bwd": (OPS_PER_EVAL_BWD, (t + staged + ran * P + t * P * (1 + 3 + 1) + staged) * 4,
+                          lambda: bwd.launch(rec, col, fo["tst"], nexec, fo["tfin"], fo["gout"],
+                                             fo["gtfin"], *tile)),
+    }
+    out = {}
+    for name, (ops, nbytes, launch) in kernels.items():
+        ms = cuda_ms(launch, 20)
+        lb, db = bound(live * ops, nbytes), bound(dense * ops, nbytes)
+        print(f"  {name} at {label}: {ms!r} ms per launch (20 launches, CUDA events); live bound "
+              f"{lb[0]!r} ms by {lb[1]} ({live} pairs x {ops} at 67 TFLOP/s = {lb[2]!r} ms; "
+              f"{nbytes} bytes at 3.35 TB/s = {lb[3]!r} ms); dense bound {db[0]!r} ms by {db[1]} "
+              f"({dense} pairs x {ops}) {tag}")
+        out[name] = {"ms": ms, "bound": lb, "dense": db}
+    return out
 
 
 def counts(*kernels):
@@ -386,12 +482,12 @@ def raster_phase(kernels, tag: str, device: str = "cuda") -> dict:
             # record ids, those the step below gives them.
             rec, col, cnt = cc.build_records(pg, flat)
             print(f"  compositors on the step's records ({rec.shape[0]} tiles x K={rec.shape[2]}):")
-            mx, mxb, _ = check_compositors(kernels[0], kernels[1], rec, col, cnt, (8, 128), gen)
+            mx, mxb, fo = check_compositors(kernels[0], kernels[1], rec, col, cnt, (8, 128), gen)
             ids = torch.where(flat.gaussian_ids >= 0, flat.gaussian_ids, g).reshape(-1).to(torch.int32)
             vals = torch.randn(ids.shape[0], 9, generator=gen, device=dev)
             mxs = check_segment_sum(kernels[2], ids, vals, g)
             stats = tiling.binning_overflow_stats(pg, image, max_dup=8, max_per_tile=K)
-            del flat, sort, pk_p, gid_p, rec, col, cnt, ids, vals
+            del flat, sort, pk_p, gid_p, ids, vals
 
         step = raster_step(api, cams, leaves, image, kw)
         finite = [step()]  # warm-up
@@ -421,6 +517,7 @@ def raster_phase(kernels, tag: str, device: str = "cuda") -> dict:
         print(f"  overflow at K={K}: " + ", ".join(f"{k} {float(v):.6g}" for k, v in stats.items()),
               flush=True)
         out[name] = dict(streams=st, step_ms=step_ms, each_ms=each_ms, launches=launches, step=step,
+                         records=(rec, col, cnt), fwd_out=fo,
                          err={"banked_gather": err, "composite_fwd": mx, "composite_bwd": mxb,
                               "segment_sum": mxs})
     return out
@@ -658,35 +755,28 @@ def main() -> None:
             err[name] = max(err.get(name, 0.0), e)
     print(f"raster: ok in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # 7. timing
+    # 7. timing. The compositors at their three record sets; the kernel
+    # table takes the full-width render's.
+    rows = []
+    comp_sets = [("serve 8x128", full, fwd_out)] + [
+        (f"raster {name}", r["records"], r["fwd_out"]) for name, r in raster.items()]
+    comp = {label: compositor_timing(fwd, bwd, label, *recs, fo, tag) for label, recs, fo in comp_sets}
     rec, col, cnt = full
     fo = fwd_out
-    P, nch, t = 8 * 128, rec.shape[2] // 128, rec.shape[0]
-    evals = int(fo["nexec"].sum()) * 128 * P
-    rows = []
-
-    def bound(ops, nbytes):
-        ops_ms, bytes_ms = ops / H100_FP32_FLOPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
-        return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes", ops_ms, bytes_ms
-
+    plain = {
+        "composite_fwd": lambda: cc.composite_records_plain(rec, col, cnt, 8, 128),
+        "composite_bwd": lambda: cc.composite_bwd_plain(rec, col, fo["tst"], fo["nexec"], fo["tfin"],
+                                                        fo["gout"], fo["gtfin"], 8, 128),
+    }
+    for name, plain_fn in plain.items():
+        c = comp["serve 8x128"][name]
+        ms, (bound_ms, bound_by, _, _) = c["ms"], c["bound"]
+        plain_ms = cuda_ms(plain_fn, 3)
+        rows.append((name, ms, plain_ms, None, bound_ms, bound_by))
+        print(f"timing: {name} {ms!r} ms per launch at serve 8x128; live bound "
+              f"{bound_ms!r} ms by {bound_by}, dense bound {c['dense'][0]!r} ms; plain {plain_ms!r} ms; "
+              f"library none {tag}")
     timing = {
-        "composite_fwd": (
-            lambda: fwd.launch(rec, col, cnt, 8, 128),
-            lambda: cc.composite_records_plain(rec, col, cnt, 8, 128),
-            None,
-            bound(evals * OPS_PER_EVAL,
-                  (rec.numel() + col.numel() + cnt.numel() + t * P * (4 + 1 + nch) + t) * 4),
-            f"{evals / 1e6:.1f}M evaluations x {OPS_PER_EVAL}",
-        ),
-        "composite_bwd": (
-            lambda: bwd.launch(rec, col, fo["tst"], fo["nexec"], fo["tfin"], fo["gout"], fo["gtfin"], 8, 128),
-            lambda: cc.composite_bwd_plain(rec, col, fo["tst"], fo["nexec"], fo["tfin"], fo["gout"],
-                                           fo["gtfin"], 8, 128),
-            None,
-            bound(evals * OPS_PER_EVAL_BWD,
-                  (2 * (rec.numel() + col.numel()) + t + t * P * (nch + 1 + 4 + 1)) * 4),
-            f"{evals / 1e6:.1f}M evaluations x {OPS_PER_EVAL_BWD}",
-        ),
         "segment_sum": (
             lambda: seg.launch(*seg_args),
             lambda: ss.scatter_add_rows_plain(*seg_args),
@@ -739,7 +829,8 @@ def main() -> None:
         on_card = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
         total_us = sum(dev_us(e) for e in on_card)
         print(f"profile: {what}, {total_us / 1e3:.1f} ms of device kernel time in {wall_ms:.1f} ms {tag}")
-        for e in sorted(on_card, key=dev_us, reverse=True)[:10]:
+        top = sorted(on_card, key=dev_us, reverse=True)
+        for e in top[:10] + [e for e in top[10:] if "composite_" in e.key]:
             print(f"  kernel {dev_us(e) / 1e3:9.2f} ms {e.count:5d}x  {e.key[:100]}")
         ops = [e for e in prof.key_averages(group_by_input_shape=True)
                if e.device_type == DeviceType.CPU and e.key.startswith("aten::") and dev_us(e) > 0]

@@ -22,97 +22,117 @@
 // so the TPU kernel's "max T ≥ 1e-4" loop test always holds and every tile
 // runs all ceil(count/128) chunks: nexec == that count.
 //
-// Design. One block per tile and one thread per pixel (P ≤ 1024). The tile
-// walks its list in 128-Gaussian chunks: the block stages a chunk's six
-// record rows and three colour rows in shared memory (9 × 128 floats), then
-// every thread walks the chunk in order with a running product for T, which
-// at the chunk's end is the TPU kernel's T_run (the minimum of the
-// contributing transmittances). None of the TPU kernel's lane-roll cumprod,
-// masked lane selects or (8, 128) nexec broadcast is needed here.
+// Design. One thread per pixel; a tile's warps (composite_cull.cuh's thread
+// map, 32 for an 8×128 tile) are cut into blocks of 8 warps, so an 8×128
+// tile takes 4 blocks and five blocks share an SM (48 registers a thread):
+// 160 tiles make 640 blocks, one wave on 132 SMs, where one 1024-thread
+// block per tile made 1.2 waves. Pixels are independent, so the blocks of a
+// tile exchange nothing. Per 128-Gaussian chunk the block stages the
+// chunk in shared memory, one thread per Gaussian: (l00, l01, cu, l11),
+// (cv, opacity, r, g) and b, so that a walk reads a Gaussian with three
+// broadcast loads, and the Gaussian's widened footprint box. Each warp then
+// tests the 128 boxes against its own pixel rectangle (lane l takes
+// Gaussians l, l+32, l+64, l+96; four __ballot_sync masks) and walks only
+// the set bits, in order (__ffs), with a running product for T; a warp
+// leaves the chunk after a mask word in which all its pixels stopped. A
+// dropped Gaussian is one that every pixel of the warp would have skipped
+// at alpha < 1/255, so each pixel does the same operations in the same
+// order as a one-block-per-tile kernel that walks every Gaussian: the
+// outputs do not depend on the culling or the thread map. The roundings
+// of u, v, u² + v² and the colour sums are spelled out (evaluate in
+// composite_cull.cuh, __fmaf_rn below), so that they do not depend on how
+// the compiler contracts either; they are those of the earlier
+// one-block-per-tile kernel as nvcc compiled it.
 //
-// Bound. fp32 ALU and SFU (exp) throughput, not bytes. At the full-width
-// render (160 tiles of 8×128, K = 1024) the work is at most
-// 160 × 1024 × 1024 = 168M (pixel, Gaussian) evaluations at about 20 FLOP
-// plus one exp each: tens of microseconds at the H100's 67 TFLOP/s fp32.
-// Records and outputs come to about 16 MB, a few microseconds at 3.35 TB/s.
-// 160 blocks on 132 SMs is 1.2 waves; that imbalance is left to a later
-// redesign of the kernel.
+// Bound. fp32 ALU and SFU (exp) throughput: about 21 operations per live
+// (pixel, Gaussian) pair of the executed chunks, one with alpha ≥ 1/255
+// before the pixel's cut at T < 1e-4 in the chunk, or the bytes where those
+// are fewer: record rows 0-5 and colour rows 0-2 of the executed chunks
+// read, acc, tfin, tst and nexec written, about 14 MB at the full-width
+// render (160 tiles of 8×128, K = 1024), ~4.3 µs at 3.35 TB/s.
+// chip_smoke.py prints both counts. What keeps the kernel above
+// that bound: every kept (warp, Gaussian) pair is evaluated on all 32
+// lanes, several times the live pairs where footprints are pixel-scale;
+// an evaluation costs some 40 instructions (expf's range reduction, the
+// mask walk, the branches), not 21 operations at the FMA rate; and the
+// block waits at each chunk's barriers for its busiest warp.
 
 #include <cuda_runtime.h>
 
+#include "composite_cull.cuh"
+
 namespace {
 
-constexpr int kChunk = 128;
-constexpr float kAlphaMin = (float)(1.0 / 255.0);
-constexpr float kAlphaMax = 0.99f;
-constexpr float kTEps = 1e-4f;
+using namespace composite;
 
-// 1024 threads a block: the compiler keeps to 64 registers a thread.
-__global__ void __launch_bounds__(1024) composite_fwd_kernel(
+__global__ void __launch_bounds__(kBlock) composite_fwd_kernel(
     const int* __restrict__ counts, const float* __restrict__ records,
     const float* __restrict__ colors, float* __restrict__ acc,
     float* __restrict__ tfin, float* __restrict__ tst, int* __restrict__ nexec,
-    int K, int tile_h, int tile_w) {
-  __shared__ float s_rec[6][kChunk];
-  __shared__ float s_col[3][kChunk];
+    int K, TileMap m) {
+  __shared__ Chunk s;
 
-  const int t = blockIdx.x;
-  const int P = tile_h * tile_w;
+  const int t = blockIdx.x / m.blocks_per_tile;
+  const int P = m.tile_h * m.tile_w;
   const int nch = K / kChunk;
-  const int p = threadIdx.x;
-  const bool has_pixel = p < P;
+  const int lane = threadIdx.x & 31;
+  const int w = (blockIdx.x % m.blocks_per_tile) * m.warps_per_block + threadIdx.x / 32;
+  const int p = lane_pixel(m, w, lane);
+  const bool has_pixel = p >= 0;
 
-  const float px = (float)(p % tile_w) - (tile_w - 1) * 0.5f;
-  const float py = (float)(p / tile_w) - (tile_h - 1) * 0.5f;
+  const int pp = has_pixel ? p : 0;
+  const float px = (float)(pp % m.tile_w) - (m.tile_w - 1) * 0.5f;
+  const float py = (float)(pp / m.tile_w) - (m.tile_h - 1) * 0.5f;
+  const Rect rect = warp_rect(has_pixel, px, py);
+  const float ext_x = (m.tile_w - 1) * 0.5f, ext_y = (m.tile_h - 1) * 0.5f;
 
   const int count = max(counts[t], 0);
   const int need = min((count + kChunk - 1) / kChunk, nch);
 
   const float* rec_t = records + (size_t)t * 8 * K;
   const float* col_t = colors + (size_t)t * 4 * K;
-  float* tst_p = tst + ((size_t)t * P + p) * nch;
+  float* tst_p = tst + ((size_t)t * P + pp) * nch;
 
   float T = 1.0f, r = 0.0f, g = 0.0f, b = 0.0f;
   for (int c = 0; c < need; ++c) {
     // Keeps the previous chunk's readers ahead of the staging below.
     __syncthreads();
-    const int off = c * kChunk;
-    for (int i = threadIdx.x; i < 9 * kChunk; i += blockDim.x) {
-      const int row = i / kChunk, k = i % kChunk;
-      if (row < 6) {
-        s_rec[row][k] = rec_t[(size_t)row * K + off + k];
-      } else {
-        s_col[row - 6][k] = col_t[(size_t)(row - 6) * K + off + k];
-      }
-    }
+    stage_chunk(rec_t, col_t, K, c * kChunk, s, ext_x, ext_y);
     __syncthreads();
-    if (!has_pixel) continue;
-    tst_p[c] = T;
-    for (int j = 0; j < kChunk; ++j) {
-      const float u = px * s_rec[0][j] + py * s_rec[1][j] + s_rec[2][j];
-      const float v = py * s_rec[3][j] + s_rec[4][j];
-      const float araw = s_rec[5][j] * expf(-0.5f * (u * u + v * v));
-      if (!(araw >= kAlphaMin)) continue;  // NaN skips too, as in the TPU kernel
-      const float alpha = fminf(araw, kAlphaMax);
-      const float T_next = T * (1.0f - alpha);
-      if (T_next < kTEps) break;  // ends this chunk only
-      const float w = alpha * T;
-      r += w * s_col[0][j];
-      g += w * s_col[1][j];
-      b += w * s_col[2][j];
-      T = T_next;
+    unsigned masks[4];
+    warp_masks(s.box, rect, lane, masks);
+    if (has_pixel) tst_p[c] = T;
+    bool done = !has_pixel;  // this chunk only
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      for (unsigned mq = masks[q]; mq; mq &= mq - 1) {
+        const int j = 32 * q + __ffs(mq) - 1;
+        if (done) continue;
+        const float4 gb = s.mix[j];
+        const float araw = gb.y * evaluate(px, py, s.geo[j], gb.x).e;
+        if (!(araw >= kAlphaMin)) continue;  // NaN skips too, as in the TPU kernel
+        const float alpha = fminf(araw, kAlphaMax);
+        const float T_next = T * (1.0f - alpha);
+        if (T_next < kTEps) {
+          done = true;  // ends this chunk only
+          continue;
+        }
+        const float wgt = alpha * T;
+        r = __fmaf_rn(wgt, gb.z, r);
+        g = __fmaf_rn(wgt, gb.w, g);
+        b = __fmaf_rn(wgt, s.blue[j], b);
+        T = T_next;
+      }
+      if (__all_sync(kFull, done)) break;  // the warp leaves the chunk
     }
   }
 
-  if (threadIdx.x == 0) nexec[t] = need;
+  if (w == 0 && lane == 0) nexec[t] = need;
   if (has_pixel) {
     for (int cc = need; cc < nch; ++cc) tst_p[cc] = 1.0f;
-    const size_t q = (size_t)t * P + p;
+    const size_t q = (size_t)t * P + pp;
     tfin[q] = T;
-    acc[q * 4 + 0] = r;
-    acc[q * 4 + 1] = g;
-    acc[q * 4 + 2] = b;
-    acc[q * 4 + 3] = 0.0f;
+    reinterpret_cast<float4*>(acc)[q] = make_float4(r, g, b, 0.0f);
   }
 }
 
@@ -123,8 +143,9 @@ extern "C" int composite_fwd(const int* counts, const float* records,
                              const float* colors, float* acc, float* tfin,
                              float* tst, int* nexec, int num_tiles, int K,
                              int tile_h, int tile_w, void* stream) {
-  const int P = tile_h * tile_w;
-  composite_fwd_kernel<<<num_tiles, P, 0, (cudaStream_t)stream>>>(
-      counts, records, colors, acc, tfin, tst, nexec, K, tile_h, tile_w);
+  const TileMap m = tile_map(tile_h, tile_w);
+  composite_fwd_kernel<<<num_tiles * m.blocks_per_tile, 32 * m.warps_per_block,
+                         0, (cudaStream_t)stream>>>(counts, records, colors, acc,
+                                                   tfin, tst, nexec, K, m);
   return (int)cudaGetLastError();
 }

@@ -2,9 +2,10 @@
 
 Each kernel is one source under `ggrt_official_torch/csrc/` with a plain C
 entry point that launches on the stream it is given and returns
-`cudaGetLastError()`. At first use nvcc compiles the source for sm_90a into
-a shared library under the git-ignored `_build/`, named by the source's
-hash, and ctypes loads it. `build_all` starts one nvcc per source at once.
+`cudaGetLastError()`; sources may include the headers (`*.cuh`) beside
+them. At first use nvcc compiles the source for sm_90a into a shared
+library under the git-ignored `_build/`, named by the hash of the source
+and the headers, and ctypes loads it. `build_all` starts one nvcc per source at once.
 
 A `CudaKernel` counts its launches: `launches` goes up by one where the
 kernel is launched and nowhere else, so a run can show that the main path
@@ -50,8 +51,10 @@ class CudaKernel:
         """Compile (once per source hash) and load; returns the C function."""
         if self._fn is not None:
             return self._fn
-        src = self.source.read_bytes()
-        so = BUILD_DIR / f"{self.source.stem}_{hashlib.sha256(src).hexdigest()[:16]}.so"
+        digest = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(self.source.parent.glob("*.cuh")):
+            digest.update(header.read_bytes())
+        so = BUILD_DIR / f"{self.source.stem}_{digest.hexdigest()[:16]}.so"
         if not so.exists():
             nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
             BUILD_DIR.mkdir(parents=True, exist_ok=True)

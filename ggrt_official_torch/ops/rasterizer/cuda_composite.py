@@ -12,9 +12,13 @@ compositor's chunk.
 (csrc/composite_fwd.cu, csrc/composite_bwd.cu) for CUDA tensors and run
 `composite_records_plain` / `composite_bwd_plain` for CPU tensors; on any
 other device they raise. They never fall back from a kernel to a plain
-version. `CompositeCore` and `GatherRows` are the autograd functions of the
-JAX package's `_get_composite_core` and `_gather_rows`: the compositor's
-backward is the backward kernel, the gather's is the segment-sum kernel.
+version. The kernels give each warp of a tile a patch of pixels (the thread
+map, `warp_pixels`) and let it skip the Gaussians whose widened footprint
+box misses its pixels (csrc/composite_cull.cuh); `warp_keeps_plain` is that
+test on tensors. `CompositeCore` and `GatherRows` are the autograd
+functions of the JAX package's `_get_composite_core` and `_gather_rows`:
+the compositor's backward is the backward kernel, the gather's is the
+segment-sum kernel.
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ from .tiling import TILE_H, TILE_W, TileBinning
 
 CHUNK = 128                  # Gaussians per compositor chunk
 MAX_TILE_PIXELS = 1024       # the kernels run one thread per tile pixel
+REL_SLACK = 2.0 ** -16       # the footprint box's relative widening
 
 
 class GatherRows(torch.autograd.Function):
@@ -102,6 +107,65 @@ def _pixel_basis(tile_h: int, tile_w: int, device):
     px = (p % tile_w).to(torch.float32) - (tile_w - 1) / 2.0
     py = torch.div(p, tile_w, rounding_mode="floor").to(torch.float32) - (tile_h - 1) / 2.0
     return px, py
+
+
+def warp_pixels(tile_h: int, tile_w: int) -> torch.Tensor:
+    """(warps, 32) int64: the tile pixel (row-major index) of each lane of
+    each warp under the kernels' thread map (composite_cull.cuh), -1 where a
+    lane has none. Warp w takes a pw x ph patch, ph = 8 or the largest
+    power of two <= tile_h and pw = 32 / ph; patches are row-major."""
+    ph = 8 if tile_h >= 8 else 4 if tile_h >= 4 else 2 if tile_h >= 2 else 1
+    pw = 32 // ph
+    npx, npy = -(-tile_w // pw), -(-tile_h // ph)
+    w = torch.arange(npx * npy)[:, None]
+    lane = torch.arange(32)[None]
+    x = (w % npx) * pw + lane % pw
+    y = torch.div(w, npx, rounding_mode="floor") * ph + torch.div(lane, pw, rounding_mode="floor")
+    return torch.where((x < tile_w) & (y < tile_h), y * tile_w + x, -1)
+
+
+def footprint_boxes(records: torch.Tensor, tile_h: int, tile_w: int) -> torch.Tensor:
+    """(t, 4, K) float32: the kernels' widened footprint box (xlo, xhi, ylo,
+    yhi) of every record in tile-centred pixels, empty (+inf, -inf, +inf,
+    -inf) where the record can reach alpha >= 1/255 at no pixel
+    (composite_cull.cuh::footprint_box, in the same float32 arithmetic)."""
+    l00, l01, cu, l11, cv, op = (records[:, i] for i in range(6))
+    ext_x, ext_y = (tile_w - 1) / 2.0, (tile_h - 1) / 2.0
+    with torch.no_grad():
+        r = torch.sqrt(torch.clamp(2.0 * torch.log(255.0 * op), min=0.0))
+        R = r + 4e-3 * (r + 1.0) + 1e-6 * (l00.abs() * ext_x + l01.abs() * ext_y + cu.abs()
+                                           + l11.abs() * ext_y + cv.abs())
+        iy = 1.0 / l11
+        my = -cv * iy
+        a = l01 * iy
+        mx = -(cu + l01 * my) / l00
+        hx0 = R * torch.sqrt(1.0 + a * a) / l00.abs()
+        hy0 = R * iy.abs()
+        hx = hx0 + 1.0 + REL_SLACK * (mx.abs() + hx0 + (cu.abs() + (l01 * my).abs()) / l00.abs())
+        hy = hy0 + 1.0 + REL_SLACK * (my.abs() + hy0)
+        box = torch.stack([mx - hx, mx + hx, my - hy, my + hy], dim=1)
+        finite = torch.isfinite(records[:, :5]).all(dim=1)
+        live = (op >= ALPHA_MIN) & finite                     # False for NaN opacity
+        none = torch.tensor([float("inf"), -float("inf")] * 2, device=records.device)
+        return torch.where(live[:, None], box, none[None, :, None])
+
+
+def warp_keeps_plain(records: torch.Tensor, tile_h: int, tile_w: int) -> torch.Tensor:
+    """The kernels' culling test on tensors: (t, warps, K) bool, True where
+    warp w keeps Gaussian k, i.e. where k's footprint box meets the
+    rectangle of w's pixels. A NaN in the box keeps the Gaussian."""
+    pix = warp_pixels(tile_h, tile_w).to(records.device)
+    px, py = _pixel_basis(tile_h, tile_w, records.device)
+    has = pix >= 0
+    inf = torch.tensor(float("inf"), device=records.device)
+    xs, ys = px[pix.clamp(min=0)], py[pix.clamp(min=0)]
+    x0 = torch.where(has, xs, inf).amin(1)[None, :, None]   # (1, W, 1)
+    x1 = torch.where(has, xs, -inf).amax(1)[None, :, None]
+    y0 = torch.where(has, ys, inf).amin(1)[None, :, None]
+    y1 = torch.where(has, ys, -inf).amax(1)[None, :, None]
+    box = footprint_boxes(records, tile_h, tile_w)[:, :, None, :]  # (t, 4, 1, K)
+    miss = (box[:, 0] > x1) | (box[:, 1] < x0) | (box[:, 2] > y1) | (box[:, 3] < y0)
+    return ~miss
 
 
 def composite_records_plain(records: torch.Tensor, colors: torch.Tensor,

@@ -1,7 +1,8 @@
 """Card-only tests of the port: the CUDA kernels (forward and backward
-compositor, segment-sum scatter, banked stream gather) against their plain
-PyTorch versions, and the rasterizer on the card against the same code on
-the CPU. Every test here needs a CUDA card and skips without one.
+compositor at four tile shapes, segment-sum scatter, banked stream
+gather) against their plain PyTorch versions, and the rasterizer on the
+card against the same code on the CPU. Every test here needs a CUDA card
+and skips without one.
 
 A card-only environment need not have JAX, and tests/conftest.py imports
 it, so run this file without the conftest:
@@ -19,7 +20,7 @@ from ggrt_official_torch.ops.rasterizer import (
 pytestmark = pytest.mark.gpu
 
 SHAPE = (64, 256)
-TILES = [(8, 128), (16, 16)]
+TILES = [(8, 128), (16, 16), (8, 32), (8, 16)]
 
 
 @pytest.fixture
@@ -164,6 +165,79 @@ def test_backward_on_saturating_tile(cuda):
     torch.cuda.synchronize()
     grad_close(kern[0], plain[0])
     grad_close(kern[1], plain[1])
+
+
+def check_both(rec, col, cnt, tile, device):
+    """Forward and backward kernels against the plain versions."""
+    kern = cuda_composite.composite_fwd.launch(rec, col, cnt, *tile)
+    torch.cuda.synchronize()
+    plain = cuda_composite.composite_records_plain(rec, col, cnt, *tile)
+    for a, b in zip(kern[:3], plain[:3]):
+        image_close(a, b)
+    assert torch.equal(kern[3], plain[3])
+    acc, tfin, tst, nexec = kern
+    gen = torch.Generator(device=device).manual_seed(0)
+    gout = torch.randn(acc.shape, generator=gen, device=device)
+    gtfin = torch.randn(tfin.shape, generator=gen, device=device)
+    dk = cuda_composite.composite_bwd.launch(rec, col, tst, nexec, tfin, gout, gtfin, *tile)
+    torch.cuda.synchronize()
+    dp = cuda_composite.composite_bwd_plain(rec, col, tst, nexec, tfin, gout, gtfin, *tile)
+    grad_close(dk[0], dp[0])
+    grad_close(dk[1], dp[1])
+    assert (dk[0][:, 6:] == 0).all() and (dk[1][:, 3] == 0).all()
+
+
+def warp_edge_records(tile, device):
+    """One tile of isotropic Gaussians whose 1/255 contour ends at a warp's
+    edge pixel: centred beside each warp's pixel rectangle at the contour
+    radius, a hair inside and a hair outside, plus opacity-0 padding."""
+    th, tw = tile
+    pix = cuda_composite.warp_pixels(th, tw)
+    px, py = cuda_composite._pixel_basis(th, tw, "cpu")
+    rng = np.random.RandomState(2)
+    cols = []
+    for w in range(pix.shape[0]):
+        mine = pix[w][pix[w] >= 0]
+        x0, x1, y0, y1 = px[mine].min(), px[mine].max(), py[mine].min(), py[mine].max()
+        for f in (1 - 1e-6, 1 + 1e-6):
+            o, s = rng.uniform(0.05, 0.95), rng.uniform(0.3, 2.0)
+            d = f * np.sqrt(2 * np.log(255 * o)) / s
+            xc, yc = rng.uniform(x0, x1), rng.uniform(y0, y1)
+            for mx, my in ((x1 + d, yc), (x0 - d, yc), (xc, y1 + d), (xc, y0 - d)):
+                cols.append([s, 0.0, -s * mx, s, -s * my, o])
+    n = len(cols)
+    K = -(-n // 128) * 128 + 128
+    rec = torch.zeros(1, 8, K)
+    rec[0, :6, :n] = torch.tensor(np.array(cols).T, dtype=torch.float32)
+    rec[0, 0, n:] = rec[0, 3, n:] = 1e-6
+    col = torch.zeros(1, 4, K)
+    col[0, :3, :n] = torch.tensor(rng.uniform(0, 1, (3, n)), dtype=torch.float32)
+    return rec.to(device), col.to(device), torch.full((1,), n, dtype=torch.int32, device=device)
+
+
+@pytest.mark.parametrize("tile", TILES)
+def test_footprints_ending_at_warp_edges(cuda, tile):
+    rec, col, cnt = warp_edge_records(tile, cuda)
+    check_both(rec, col, cnt, tile, cuda)
+
+
+def test_many_tiles_match_plain(cuda):
+    """320 tiles of 8x128 (four blocks each), so that the blocks of a tile
+    add their partial gradients into one slice."""
+    rng = np.random.RandomState(3)
+    shape, n = (320, 1024), 40000
+    means = np.stack([rng.uniform(-1.6, 1.6, n), rng.uniform(-0.5, 0.5, n), rng.uniform(2.0, 8.0, n)], -1)
+    s = rng.uniform(0.005, 0.04, (n, 3))
+    sc = dict(means=means, covariances=np.einsum("ni,ij->nij", s * s, np.eye(3)),
+              sh_coeffs=rng.normal(size=(n, 3, 25)) * 0.3, opacities=rng.uniform(0.05, 0.95, n),
+              extrinsics=np.eye(4), intrinsics=np.array([[0.8, 0, 0.5], [0, 2.56, 0.5], [0, 0, 1]]),
+              near=np.array(1.0), far=np.array(20.0))
+    sc = {k: torch.tensor(v, dtype=torch.float32, device=cuda) for k, v in sc.items()}
+    pg = projection.project_gaussians(*(sc[k] for k in ARGS), shape)
+    b = tiling.bin_gaussians(pg, shape, 32, 256)
+    rec, col, cnt = cuda_composite.build_records(pg, b)
+    assert rec.shape[0] == 320 and int((cnt > 128).sum()) > 100
+    check_both(rec, col, cnt, (8, 128), cuda)
 
 
 def test_segment_sum_matches_plain(cuda):
