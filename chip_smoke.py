@@ -13,7 +13,8 @@ Phases; each one that fails stops the run with a non-zero exit:
              (16x16 tiles, some lists empty, some < 128); the segment-sum
              scatter on the record ids of a full-width train-step render
              (3,440,640 Gaussians, dead entries sent to the dump row). The
-             banked gather is checked in phase 6, on its real streams.
+             banked gather-and-merge is checked in phase 6, on its real
+             streams.
   4. serve:  PixelSplat at pretrain_config() width with seeded random
              weights renders 3 requests (synthetic scenes at 320x448, 5
              source views -> 4 context pairs -> 1,146,880 Gaussians, 1
@@ -39,9 +40,11 @@ Phases; each one that fails stops the run with a non-zero exit:
              At each: K from choose_max_per_tile (45 dB, max_dup 8); at
              320x448 the bench's gate (a 64x128 render of the first 4096
              Gaussians, "cuda" against "tiled", both banked); the banked
-             gather kernel against its plain version on this scale's real
-             streams (bit for bit) and the flat merge's lists against the
-             per-slot sort merge's; the forward and backward compositors on
+             gather-and-merge kernel's (ids, counts) against its plain
+             version (gather, flat sort, front-K cut) on this scale's real
+             streams, bit for bit, with the valid entries and the shared
+             memory per block; the flat merge's lists against the per-slot
+             sort merge's; the forward and backward compositors on
              the records of those lists and the scatter on their record ids
              against their plain versions, with phase 3's tolerances; then
              one warm-up and 10 (320x448) or 5
@@ -61,10 +64,13 @@ Phases; each one that fails stops the run with a non-zero exit:
              chunks, the live one (the kernel table's) only the pairs with
              alpha >= 1/255 before the pixel's cut at T < 1e-4 in the
              chunk; and the share of (warp, Gaussian) pairs that the
-             kernels' footprint test keeps.
+             kernels' footprint test keeps. The banked kernel's bound
+             counts bytes and integer operations (at the INT32 rate);
+             tiling.bin_gaussians_banked's device and host ms per call at
+             both raster scales.
   8. profile: one more request, one more train step and one more raster
              step at each scale under torch.profiler; the kernels and ops
-             that take the most device time, and the compositor kernels.
+             that take the most device time, and the port's own kernels.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or outside a checkout
 of the repository, it prints no result and exits non-zero.
@@ -80,6 +86,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 H100_FP32_FLOPS = 67e12      # fp32 outside the tensor cores (SXM data sheet)
+# INT32 adds, compares and logic: 64 INT32 lanes per SM (a quarter of an SM's
+# 128 FP32 lanes counted as FMA's two operations each) x 132 SMs x 1.98 GHz.
+H100_INT32_OPS = 132 * 64 * 1.98e9
 H100_BYTES_PER_S = 3.35e12   # HBM3
 OPS_PER_EVAL = 21            # ~20 FLOP + 1 exp per (pixel, Gaussian) evaluation
 # The backward's least work per evaluation: the forward's 21, then w,
@@ -97,9 +106,10 @@ RASTER_SCALES = (((320, 448), 10), ((640, 960), 5))
 RASTER_STEP_LAUNCHES = (1, 1, 1, 1)
 
 
-def bound(ops, nbytes):
-    """(least ms, "operations" or "bytes", ops ms, bytes ms) on the card."""
-    ops_ms, bytes_ms = ops / H100_FP32_FLOPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+def bound(ops, nbytes, rate=H100_FP32_FLOPS):
+    """(least ms, "operations" or "bytes", ops ms, bytes ms) on the card, the
+    operations at `rate` per second."""
+    ops_ms, bytes_ms = ops / rate * 1e3, nbytes / H100_BYTES_PER_S * 1e3
     return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes", ops_ms, bytes_ms
 
 
@@ -296,22 +306,36 @@ def reset(*kernels):
         k.launches = 0
 
 
-def cuda_ms(fn, iters: int) -> float:
+def cuda_ms(fn, iters: int, spin: int = 20_000_000, calls: list | None = None) -> float:
     """Device ms per call of `fn`, by CUDA events around `iters` calls. The
-    calls are queued behind a ~10 ms spin kernel, so a kernel shorter than
-    its own launch overhead is timed on the card, not at the host's
-    launch rate."""
+    calls are queued behind a spin kernel of `spin` cycles (~10 ms by
+    default), so work shorter than its own launch overhead is timed on the
+    card, not at the host's launch rate. That holds only if the host has
+    queued every call before the spin ends; a call that waits for the card,
+    or more launches than the card's queue of pending work holds (a call of
+    ~135 launches fills it in under ten calls), ends the spin first, and the
+    last calls then run at the host's pace. So while the spin has ended
+    before the host queued the last call, the reading is taken again over
+    half the calls, down to one. `calls`, if given, receives the number of
+    calls of the reading and whether the spin outlasted their queuing."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(20_000_000)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
+    while True:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        queued = not start.query()
+        torch.cuda.synchronize()
+        if queued or iters == 1:
+            break
+        iters //= 2
+    if calls is not None:
+        calls[:] = [iters, queued]
     return start.elapsed_time(end) / iters
 
 
@@ -391,20 +415,55 @@ def bench_inputs(image_shape, device, seed: int = 0, gpp: int = 3, pairs: int = 
     return cams, {"means": means, "covariances": cov, "sh_coeffs": sh, "opacities": opa}
 
 
-def banked_gather_bytes(st) -> int:
-    """Least bytes the banked gather moves: both outputs written once, the
-    key and payload words that some window covers read once, and the
-    (al, lo, hi) descriptors."""
+def banked_lists_work(st, K, n_valid) -> tuple[int, int, int]:
+    """Least work of the banked gather-and-merge: (integer operations,
+    bytes, run entries). The lists depend only on each (tile, slot)'s run
+    [lo, hi): its key and payload words are read once where some run covers
+    them, each run entry costs 10 operations (its position, the run and
+    window-shape tests, the key) and each valid entry ceil(log2 S) compares,
+    the least a merge of S sorted runs needs; the (al, lo, hi) descriptors
+    are read and the (T, K) int64 ids and (T,) int32 counts written once."""
     import torch
 
-    ncol = sum(st.budgets) + 128 * len(st.budgets)
-    widths = torch.tensor([b + 128 for b in st.budgets], device=st.al.device)
-    start = st.al.long() * 128
-    edges = torch.zeros(st.key_sorted.shape[0] + 1, dtype=torch.long, device=st.al.device)
-    edges.index_add_(0, start.reshape(-1), torch.ones_like(start).reshape(-1))
-    edges.index_add_(0, (start + widths).reshape(-1), -torch.ones_like(start).reshape(-1))
+    start, width = st.lo.long().reshape(-1), (st.hi - st.lo).long().reshape(-1)
+    edges = torch.zeros(st.key_sorted.shape[0] + 1, dtype=torch.long, device=st.lo.device)
+    edges.index_add_(0, start, torch.ones_like(start))
+    edges.index_add_(0, start + width, -torch.ones_like(start))
     covered = int((edges.cumsum(0)[:-1] > 0).sum())
-    return 8 * st.num_tiles * ncol + 8 * covered + 12 * st.al.numel()
+    entries = int(width.sum())
+    ops = 10 * entries + math.ceil(math.log2(len(st.budgets))) * n_valid
+    nbytes = 8 * covered + 12 * st.al.numel() + 8 * st.num_tiles * K + 4 * st.num_tiles
+    return ops, nbytes, entries
+
+
+def binning_ms(tiling, pg, image, K) -> dict:
+    """tiling.bin_gaussians_banked at max_dup 8: host ms per call (the
+    enqueue of 10 calls, then one wait), device ms per call by cuda_ms behind
+    a ~100 ms spin (over as many of 10 calls as the host queues within it:
+    a call makes ~135 launches), and the device kernel time per call summed
+    by torch.profiler over 5 calls (not fooled by a wait inside the call)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn = lambda: tiling.bin_gaussians_banked(pg, image, 8, K)
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / 10
+    torch.cuda.synchronize()
+    calls = []
+    dev_ms = cuda_ms(fn, 10, spin=200_000_000, calls=calls)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+    dev_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+    kernel_us = sum(dev_us(e) for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+    return {"host_ms": host_ms, "cuda_ms": dev_ms, "calls": calls[0], "queued": calls[1],
+            "kernel_ms": kernel_us / 1e3 / 5}
 
 
 def raster_phase(kernels, tag: str, device: str = "cuda") -> dict:
@@ -456,19 +515,24 @@ def raster_phase(kernels, tag: str, device: str = "cuda") -> dict:
             pg = projection.project_gaussians(
                 *(x[0] for x in leaves.values()), *(x[0] for x in cam_args(cams)), image)
             st = tiling.banked_streams(pg, image, 8, K)
-            skw = dict(budgets=st.budgets, dydx=st.dydx, qbits=st.qbits, num_tiles=st.num_tiles)
-            pk, gid = kernels[3](*st[:5], **skw)
+            skw = dict(budgets=st.budgets, dydx=st.dydx, qbits=st.qbits, num_tiles=st.num_tiles,
+                       max_per_tile=K)
+            ids_k, cnt_k = kernels[3](*st[:5], **skw)
             torch.cuda.synchronize()
-            pk_p, gid_p = bg.gather_streams_plain(*st[:5], **skw)
-            same = torch.equal(pk, pk_p) and torch.equal(gid, gid_p)
-            err = max(int((pk.long() - pk_p.long()).abs().max()),
-                      int((gid.long() - gid_p.long()).abs().max()))
-            n_valid = int((gid != bg.INVALID_GID).sum())
+            ids_p, cnt_p = bg.banked_lists_plain(*st[:5], **skw)
+            same = torch.equal(ids_k, ids_p) and torch.equal(cnt_k, cnt_p)
+            err = max(int((ids_k - ids_p).abs().max()), int((cnt_k - cnt_p).abs().max()))
+            _, gid_cols = bg.gather_streams_plain(*st[:5], budgets=st.budgets, dydx=st.dydx,
+                                                  qbits=st.qbits, num_tiles=st.num_tiles)
+            n_valid = int((gid_cols != bg.INVALID_GID).sum())
             print(f"  banked_gather: {st.num_tiles} tiles x {len(st.budgets)} slots, budgets "
-                  f"{list(st.budgets)}, ncol {pk.shape[1]}, {n_valid} valid entries; kernel "
-                  f"{'equals' if same else 'DIFFERS FROM'} the plain version bit for bit")
+                  f"{list(st.budgets)}, ncol {sum(st.budgets) + 128 * len(st.budgets)}, "
+                  f"{n_valid} valid entries, {int(cnt_k.sum())} listed (K {K}); shared memory "
+                  f"{bg.smem_bytes(st.budgets)} bytes per block; kernel (ids, counts) "
+                  f"{'equal' if same else 'DIFFER FROM'} the plain version's bit for bit")
             if not same:
                 fail(f"banked_gather disagrees with its plain version at {name}")
+            del gid_cols
             flat = tiling.bin_gaussians_banked(pg, image, 8, K, merge="flat")
             sort = tiling.bin_gaussians_banked(pg, image, 8, K, merge="sort")
             lists_equal = (torch.equal(flat.gaussian_ids, sort.gaussian_ids)
@@ -487,7 +551,7 @@ def raster_phase(kernels, tag: str, device: str = "cuda") -> dict:
             vals = torch.randn(ids.shape[0], 9, generator=gen, device=dev)
             mxs = check_segment_sum(kernels[2], ids, vals, g)
             stats = tiling.binning_overflow_stats(pg, image, max_dup=8, max_per_tile=K)
-            del flat, sort, pk_p, gid_p, ids, vals
+            del flat, sort, ids_k, ids_p, ids, vals
 
         step = raster_step(api, cams, leaves, image, kw)
         finite = [step()]  # warm-up
@@ -516,8 +580,8 @@ def raster_phase(kernels, tag: str, device: str = "cuda") -> dict:
               f"{RASTER_STEP_LAUNCHES} per step {tag}")
         print(f"  overflow at K={K}: " + ", ".join(f"{k} {float(v):.6g}" for k, v in stats.items()),
               flush=True)
-        out[name] = dict(streams=st, step_ms=step_ms, each_ms=each_ms, launches=launches, step=step,
-                         records=(rec, col, cnt), fwd_out=fo,
+        out[name] = dict(streams=st, K=K, n_valid=n_valid, pg=pg, step_ms=step_ms, each_ms=each_ms,
+                         launches=launches, step=step, records=(rec, col, cnt), fwd_out=fo,
                          err={"banked_gather": err, "composite_fwd": mx, "composite_bwd": mxb,
                               "segment_sum": mxs})
     return out
@@ -563,7 +627,7 @@ def main() -> None:
     from ggrt_official_torch.training.trainer import GGRtTrainer
 
     dev = torch.device("cuda")
-    fwd, bwd, seg, gat = cc.composite_fwd, cc.composite_bwd, ss.scatter_add_rows, bg.gather_streams
+    fwd, bwd, seg, gat = cc.composite_fwd, cc.composite_bwd, ss.scatter_add_rows, bg.banked_lists
     kernels = (fwd, bwd, seg, gat)
 
     # 1. card
@@ -782,19 +846,22 @@ def main() -> None:
             lambda: ss.scatter_add_rows_plain(*seg_args),
             lambda: torch.zeros(seg_args[2] + 1, 9, device=dev).index_add_(0, seg_args[0].long(), seg_args[1]),
             bound(seg_args[1].numel(), (seg_args[0].numel() + seg_args[1].numel() + seg_args[2] * 9) * 4),
-            f"{seg_args[1].numel() / 1e6:.2f}M adds",
+            f"{seg_args[1].numel() / 1e6:.2f}M adds at 67 TFLOP/s (fp32)",
         ),
     }
     for name, r in raster.items():
-        st = r["streams"]
-        skw = dict(budgets=st.budgets, dydx=st.dydx, qbits=st.qbits, num_tiles=st.num_tiles)
-        ncol = sum(st.budgets) + 128 * len(st.budgets)
+        st, K = r["streams"], r["K"]
+        skw = dict(budgets=st.budgets, dydx=st.dydx, qbits=st.qbits, num_tiles=st.num_tiles,
+                   max_per_tile=K)
+        ops, nbytes, entries = banked_lists_work(st, K, r["n_valid"])
         timing[f"banked_gather {name}"] = (
             lambda st=st, skw=skw: gat.launch(*st[:5], **skw),
-            lambda st=st, skw=skw: bg.gather_streams_plain(*st[:5], **skw),
+            lambda st=st, skw=skw: bg.banked_lists_plain(*st[:5], **skw),
             None,
-            bound(10 * st.num_tiles * ncol, banked_gather_bytes(st)),
-            f"{st.num_tiles} x {ncol} columns x 10 integer operations",
+            bound(ops, nbytes, H100_INT32_OPS),
+            f"{entries} run entries x 10 + {r['n_valid']} valid entries x "
+            f"{math.ceil(math.log2(len(st.budgets)))} merge compares, integer operations at "
+            f"{H100_INT32_OPS / 1e12:.2f} TOP/s (INT32)",
         )
     for name, (kern_fn, plain_fn, lib_fn, (bound_ms, bound_by, ops_ms, bytes_ms), work) in timing.items():
         ms = cuda_ms(kern_fn, 20)
@@ -802,9 +869,16 @@ def main() -> None:
         library_ms = cuda_ms(lib_fn, 20) if lib_fn else None
         rows.append((name, ms, plain_ms, library_ms, bound_ms, bound_by))
         print(f"timing: {name} {ms!r} ms per launch (20 launches, CUDA events); bound {bound_ms!r} ms "
-              f"by {bound_by} ({work} at 67 TFLOP/s = {ops_ms:.4f} ms; bytes at 3.35 TB/s = "
+              f"by {bound_by} ({work} = {ops_ms:.4f} ms; bytes at 3.35 TB/s = "
               f"{bytes_ms:.4f} ms); plain {plain_ms!r} ms; library "
               f"{'none' if library_ms is None else f'{library_ms!r} ms (index_add_)'} {tag}")
+    for name, r in raster.items():
+        b = binning_ms(tiling, r["pg"], tuple(int(x) for x in name.split("x")), r["K"])
+        print(f"timing: tiling.bin_gaussians_banked at {name} (K {r['K']}): device "
+              f"{b['cuda_ms']!r} ms per call (cuda_ms, {b['calls']} calls behind a ~100 ms spin, "
+              f"{'all' if b['queued'] else 'NOT all'} queued within it), device "
+              f"kernel time {b['kernel_ms']!r} ms per call (profiler, 5 calls), host "
+              f"{b['host_ms']!r} ms per call (enqueue, 10 calls) {tag}")
     print(f"timing: request ms {', '.join(f'{x:.1f}' for x in request_ms)} {tag}")
     print(f"timing: step ms {', '.join(f'{m} {x:.1f}' for m, x in step_ms)} "
           f"(after one warm-up step) {tag}")
@@ -830,7 +904,8 @@ def main() -> None:
         total_us = sum(dev_us(e) for e in on_card)
         print(f"profile: {what}, {total_us / 1e3:.1f} ms of device kernel time in {wall_ms:.1f} ms {tag}")
         top = sorted(on_card, key=dev_us, reverse=True)
-        for e in top[:10] + [e for e in top[10:] if "composite_" in e.key]:
+        own = ("composite_", "banked_lists", "segment_sum")
+        for e in top[:10] + [e for e in top[10:] if any(k in e.key for k in own)]:
             print(f"  kernel {dev_us(e) / 1e3:9.2f} ms {e.count:5d}x  {e.key[:100]}")
         ops = [e for e in prof.key_averages(group_by_input_shape=True)
                if e.device_type == DeviceType.CPU and e.key.startswith("aten::") and dev_us(e) > 0]

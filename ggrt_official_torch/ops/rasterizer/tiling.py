@@ -23,6 +23,7 @@ Tile geometry is (tile_h, tile_w) = (8, 128) by default.
 """
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import NamedTuple
 
 import torch
@@ -56,13 +57,20 @@ def _quantize_depth(depth: torch.Tensor, visible: torch.Tensor, bits: int) -> to
     """Monotone fixed-point depth key in [0, 2^bits), uniform over the
     visible depth range. Invisible entries get the max key so they sort
     behind everything."""
-    big = torch.tensor(3.4e38, dtype=torch.float32, device=depth.device)
-    lo = torch.where(visible, depth, big).min()
-    hi = torch.where(visible, depth, -big).max()
+    lo = torch.where(visible, depth, 3.4e38).min()
+    hi = torch.where(visible, depth, -3.4e38).max()
     span = torch.clamp(hi - lo, min=1e-6)
     q = torch.clamp((depth - lo) / span, 0.0, 1.0) * ((1 << bits) - 2)
     q = q.to(torch.int32)
     return torch.where(visible, q, torch.full_like(q, (1 << bits) - 1))
+
+
+@lru_cache(maxsize=None)
+def _int_row(values: tuple, device: torch.device) -> torch.Tensor:
+    """A constant (len(values),) int32 tensor on `device`, made once: a
+    tensor built from a list is a host-to-device copy, which waits for the
+    device on every call."""
+    return torch.tensor(values, dtype=torch.int32, device=device)
 
 
 def _sort_pairs(major: torch.Tensor, minor: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -309,7 +317,7 @@ def bin_gaussians_counting(
 
 class BankedStreams(NamedTuple):
     """Banked binning's per-(tile, slot) stream descriptors over the
-    (group, depth)-sorted Gaussians: the arguments of `gather_streams`."""
+    (group, depth)-sorted Gaussians: the arguments of `banked_lists`."""
 
     key_sorted: torch.Tensor   # (n_pad,) int32: group << qbits | q, 0-padded
     gw_sorted: torch.Tensor    # (n_pad,) int32: gid | win << 25, INVALID_GID-padded
@@ -340,13 +348,20 @@ def _banked_budgets(K: int, win_x: int, S: int):
     return tuple(-(-budget(dy, dx) // bg.ALIGN) * bg.ALIGN for dy, dx in dydx), dydx
 
 
-def banked_uses_kernel(num_gaussians: int, ntx: int, max_dup: int, merge: str = "flat") -> bool:
-    """The banked-gather kernel's gate: a flat merge, ids below 2^25, and a
-    window shape nxw | nyw << 2 that fits the 6 payload bits above them.
-    It fails at max_dup 32, and at max_dup 16 on a one-tile-wide image."""
+def banked_uses_kernel(num_gaussians: int, ntx: int, max_dup: int, max_per_tile: int,
+                       merge: str = "flat") -> bool:
+    """The banked kernel's gate: a flat merge, ids below 2^25, a window shape
+    nxw | nyw << 2 that fits the 6 payload bits above them, and a block's
+    shared memory for the budgets within the card's 232,448 bytes
+    (banked_gather.smem_bytes). It fails at max_dup 32, at max_dup 16 on a
+    one-tile-wide image, and at max_dup 8 above K 4224 (window 2x4) or 4480
+    (window 1x8)."""
     win_x = 1 if ntx == 1 else 2
+    win_y = max_dup // win_x
+    budgets, _ = _banked_budgets(max_per_tile, win_x, win_x * win_y)
     return (merge in ("auto", "flat") and num_gaussians < (1 << bg.GID_BITS)
-            and (win_x | ((max_dup // win_x) << 2)) < bg.WIN_LIMIT)
+            and (win_x | (win_y << 2)) < bg.WIN_LIMIT
+            and bg.smem_bytes(budgets) <= bg.SMEM_LIMIT)
 
 
 class _Banked(NamedTuple):
@@ -390,8 +405,8 @@ def _banked_sort(pg, image_shape, max_dup, max_per_tile, tile_h, tile_w) -> _Ban
     t_idx = torch.arange(num_tiles, dtype=torch.int32, device=dev)
     r = _floordiv(t_idx, ntx)
     c = t_idx - r * ntx
-    dy = torch.tensor([d[0] for d in dydx], dtype=torch.int32, device=dev)
-    dx = torch.tensor([d[1] for d in dydx], dtype=torch.int32, device=dev)
+    dy = _int_row(tuple(d[0] for d in dydx), dev)
+    dx = _int_row(tuple(d[1] for d in dydx), dev)
     src_r = r[:, None] - dy[None, :]
     src_c = c[:, None] - dx[None, :]
     grp_ok = (src_r >= 0) & (src_c >= 0)
@@ -407,7 +422,7 @@ def _banked_sort(pg, image_shape, max_dup, max_per_tile, tile_h, tile_w) -> _Ban
 
 def _banked_streams(b: _Banked) -> BankedStreams:
     g = b.key_sorted.shape[0]
-    L = torch.tensor(b.budgets, dtype=torch.int32, device=b.key_sorted.device)[None, :]
+    L = _int_row(b.budgets, b.key_sorted.device)[None, :]
     eff = torch.where(b.grp_ok, torch.minimum(b.seg_total, L), torch.zeros_like(b.seg_total))
     # Padded so that every window [al·128, al·128 + budget + 128) lies
     # inside: al·128 <= lo <= g, so a window ends by g + max(budgets) + 128
@@ -456,10 +471,10 @@ def bin_gaussians_banked(
     merge lies in the union of the streams' fronts), and merges them by
     (depth, Gaussian id).
 
-    merge "flat" or "auto" takes the banked-gather kernel where
-    `banked_uses_kernel` holds and merges with one flat sort; "sort", or
-    outside the gate, gathers slot by slot and merges with a per-tile sort.
-    Both give the same lists.
+    merge "flat" or "auto" takes the banked kernel where `banked_uses_kernel`
+    holds (on CPU tensors its plain version: the gathered columns and one
+    flat sort); "sort", or outside the gate, gathers slot by slot and merges
+    with a per-tile sort. Both give the same lists.
     """
     K = max_per_tile
     g = pg.mean2d.shape[0]
@@ -467,39 +482,33 @@ def bin_gaussians_banked(
     with torch.no_grad():
         b = _banked_sort(pg, image_shape, max_dup, K, tile_h, tile_w)
         num_tiles, qbits = b.num_tiles, b.qbits
-        if banked_uses_kernel(g, b.ntx, max_dup, merge):
+        if banked_uses_kernel(g, b.ntx, max_dup, K, merge):
             s = _banked_streams(b)
-            packed_all, gid_all = bg.gather_streams(
+            ids, counts = bg.banked_lists(
                 s.key_sorted, s.gw_sorted, s.al, s.lo, s.hi, budgets=s.budgets, dydx=s.dydx,
-                qbits=qbits, num_tiles=num_tiles)
-            # The tile index sits above the depth in `packed`, so one flat
-            # sort by (packed, gid) orders every tile's columns in place.
-            gid_fin = _sort_pairs(packed_all.reshape(-1), gid_all.reshape(-1)).reshape(num_tiles, -1)
+                qbits=qbits, num_tiles=num_tiles, max_per_tile=K)
+            return TileBinning(gaussian_ids=ids, counts=counts, num_tiles_y=b.nty,
+                               num_tiles_x=b.ntx)
+        qmask = (1 << qbits) - 1
+        q_sorted = b.key_sorted & qmask
+        q_cols, gid_cols = [], []
+        for s, (L, (dy, dx)) in enumerate(zip(b.budgets, b.dydx)):
+            k_r = torch.arange(L, dtype=torch.int32, device=dev)
+            length = torch.clamp(b.seg_total[:, s], max=L)
+            pos = torch.clamp(b.seg_lo[:, s, None] + k_r[None, :], 0, g - 1).long()
+            win_at = b.win_sorted[pos]
+            valid = ((k_r[None, :] < length[:, None]) & b.grp_ok[:, s:s + 1]
+                     & (dy < (win_at >> 2)) & (dx < (win_at & 3)))
+            q_cols.append(torch.where(valid, q_sorted[pos], qmask))
+            gid_cols.append(torch.where(valid, b.gid_sorted[pos], bg.INVALID_GID))
+        q_all = torch.cat(q_cols, dim=1)
+        gid_all = torch.cat(gid_cols, dim=1)
+        if merge in ("flat", "auto"):
+            tile_col = torch.arange(num_tiles, dtype=torch.int32, device=dev)[:, None]
+            gid_fin = _sort_pairs(((tile_col << qbits) | q_all).reshape(-1),
+                                  gid_all.reshape(-1)).reshape(num_tiles, -1)
         else:
-            qmask = (1 << qbits) - 1
-            q_sorted = b.key_sorted & qmask
-            q_cols, gid_cols = [], []
-            for s, (L, (dy, dx)) in enumerate(zip(b.budgets, b.dydx)):
-                k_r = torch.arange(L, dtype=torch.int32, device=dev)
-                length = torch.clamp(b.seg_total[:, s], max=L)
-                pos = torch.clamp(b.seg_lo[:, s, None] + k_r[None, :], 0, g - 1).long()
-                win_at = b.win_sorted[pos]
-                valid = ((k_r[None, :] < length[:, None]) & b.grp_ok[:, s:s + 1]
-                         & (dy < (win_at >> 2)) & (dx < (win_at & 3)))
-                q_cols.append(torch.where(valid, q_sorted[pos], qmask))
-                gid_cols.append(torch.where(valid, b.gid_sorted[pos], bg.INVALID_GID))
-            q_all = torch.cat(q_cols, dim=1)
-            gid_all = torch.cat(gid_cols, dim=1)
-            if merge in ("flat", "auto"):
-                tile_col = torch.arange(num_tiles, dtype=torch.int32, device=dev)[:, None]
-                gid_fin = _sort_pairs(((tile_col << qbits) | q_all).reshape(-1),
-                                      gid_all.reshape(-1)).reshape(num_tiles, -1)
-            else:
-                gid_fin = _sort_pairs(q_all, gid_all, dim=1)
+            gid_fin = _sort_pairs(q_all, gid_all, dim=1)
 
-        n_valid = (gid_all != bg.INVALID_GID).sum(dim=1, dtype=torch.int32)
-        counts = torch.clamp(n_valid, max=K)
-        k = torch.arange(K, device=dev)
-        ids = torch.where(k[None, :] < counts[:, None], gid_fin[:, :K].long(),
-                          torch.full((num_tiles, K), -1, dtype=torch.long, device=dev))
+        ids, counts = bg.front_lists(gid_fin, gid_all, K)
     return TileBinning(gaussian_ids=ids, counts=counts, num_tiles_y=b.nty, num_tiles_x=b.ntx)

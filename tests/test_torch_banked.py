@@ -5,10 +5,16 @@ list, count and statistic must be equal.
 
 The JAX banked-gather kernel runs in Pallas interpret mode, as
 tests/test_segment_sum.py runs it; the port's wrapper runs its plain
-PyTorch version because the tensors lie on the CPU. The CUDA kernel itself
-is held against the plain version by tests/test_torch_gpu.py and
-chip_smoke.py.
+PyTorch version because the tensors lie on the CPU. The CUDA kernel's
+algorithm (compaction of each slot's valid entries, then a rank merge of
+the sorted runs) is written out in torch here and held against the plain
+version; the kernel itself is held against the plain version by
+tests/test_torch_gpu.py and chip_smoke.py.
 """
+import importlib.util
+import math
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,6 +28,8 @@ from ggrt_official_tpu.ops.rasterizer import tiling as jtiling
 from ggrt_official_torch.ops.rasterizer import banked_gather as tbg
 from ggrt_official_torch.ops.rasterizer import projection as tproj
 from ggrt_official_torch.ops.rasterizer import tiling as ttiling
+
+ROOT = Path(__file__).resolve().parents[1]
 
 # (image, tile, K): 8x128 tiles over 32x256 (2 tiles wide), 16x16 and 8x32
 # tiles, and 64x96 at 8x128 (one tile wide: the tall-window regime, win 1x8).
@@ -104,15 +112,15 @@ def test_banked_lists_equal_jax(jax_side, case):
     assert int(np.asarray(ref.counts).max()) == K
 
 
-def spy_gather(monkeypatch):
+def spy_lists(monkeypatch):
     calls = []
-    real = tbg.gather_streams
+    real = tbg.banked_lists
 
     def spy(*a, **kw):
         calls.append(kw["budgets"])
         return real(*a, **kw)
 
-    monkeypatch.setattr(tbg, "gather_streams", spy)
+    monkeypatch.setattr(tbg, "banked_lists", spy)
     return calls
 
 
@@ -125,45 +133,182 @@ def test_kernel_gate(monkeypatch, shape, max_dup, kernel):
     (win 2x16) and, one tile wide, max_dup 16 (win 1x16) take the per-slot
     branch, in the JAX package and in the port; the lists equal JAX's."""
     pg = project(population(), shape)
-    calls = spy_gather(monkeypatch)
+    calls = spy_lists(monkeypatch)
     b = ttiling.bin_gaussians_banked(tpg(pg), shape, max_dup, 256, merge="flat")
     ntx = -(-shape[1] // 128)
-    assert ttiling.banked_uses_kernel(4000, ntx, max_dup) == kernel
+    assert ttiling.banked_uses_kernel(4000, ntx, max_dup, 256) == kernel
     assert bool(calls) == kernel
     ref = jax.jit(lambda p: jtiling.bin_gaussians_banked(p, shape, max_dup, 256))(jpg(pg))
     assert_lists_equal(b, ref)
-    assert not ttiling.banked_uses_kernel(4000, ntx, 8, merge="sort")
+    assert not ttiling.banked_uses_kernel(4000, ntx, 8, 256, merge="sort")
 
 
 @pytest.mark.parametrize("shape,tile", [((32, 256), (8, 128)), ((64, 96), (8, 128)),
                                         ((32, 256), (8, 32))])
 def test_plain_gather_matches_pallas_kernel(shape, tile):
     """gather_streams_plain against the Pallas kernel (interpret mode) on
-    the descriptors banked binning builds: both int32 outputs equal."""
+    the descriptors banked binning builds: both int32 outputs equal. On the
+    CPU banked_lists runs its plain version and launches nothing."""
     pg = project(population(), shape)
     s = ttiling.banked_streams(tpg(pg), shape, 8, 128, *tile)
     kw = dict(budgets=list(s.budgets), dydx=list(s.dydx), qbits=s.qbits, num_tiles=s.num_tiles)
-    launches = tbg.gather_streams.launches
-    packed, gid = tbg.gather_streams(s.key_sorted, s.gw_sorted, s.al, s.lo, s.hi, **kw)
-    assert tbg.gather_streams.launches == launches, "a CPU call launched no kernel"
+    launches = tbg.banked_lists.launches
+    packed, gid = tbg.gather_streams_plain(s.key_sorted, s.gw_sorted, s.al, s.lo, s.hi, **kw)
+    ids, counts = tbg.banked_lists(*s[:5], **kw, max_per_tile=128)
+    assert tbg.banked_lists.launches == launches, "a CPU call launched no kernel"
     with pltpu.force_tpu_interpret_mode():
         jpk, jgid = jbg.gather_streams(*(jnp.asarray(x.numpy()) for x in s[:5]), **kw)
     np.testing.assert_array_equal(packed.numpy(), np.asarray(jpk))
     np.testing.assert_array_equal(gid.numpy(), np.asarray(jgid))
     valid = gid != tbg.INVALID_GID
     assert valid.any() and (~valid).any()
+    assert torch.equal(counts, torch.clamp(valid.sum(dim=1, dtype=torch.int32), max=128))
 
 
 def test_gather_rejects_bad_descriptors():
     pg = project(population(), (32, 256))
     s = ttiling.banked_streams(tpg(pg), (32, 256), 8, 128)
-    kw = dict(budgets=s.budgets, dydx=s.dydx, qbits=s.qbits, num_tiles=s.num_tiles)
+    kw = dict(budgets=s.budgets, dydx=s.dydx, qbits=s.qbits, num_tiles=s.num_tiles,
+              max_per_tile=128)
     with pytest.raises(ValueError):      # not padded past the last window
-        tbg.gather_streams(s.key_sorted[:600], s.gw_sorted[:600], s.al, s.lo, s.hi, **kw)
+        tbg.banked_lists(s.key_sorted[:600], s.gw_sorted[:600], s.al, s.lo, s.hi, **kw)
     with pytest.raises(ValueError):      # a budget off the 128 grid
-        tbg.gather_streams(*s[:5], **{**kw, "budgets": (100,) + s.budgets[1:]})
+        tbg.banked_lists(*s[:5], **{**kw, "budgets": (100,) + s.budgets[1:]})
     with pytest.raises(ValueError):
-        tbg.gather_streams(s.key_sorted, s.gw_sorted, s.al[:, :3], s.lo, s.hi, **kw)
+        tbg.banked_lists(s.key_sorted, s.gw_sorted, s.al[:, :3], s.lo, s.hi, **kw)
+    with pytest.raises(ValueError):      # K past the tile's columns
+        tbg.banked_lists(*s[:5], **{**kw, "max_per_tile": 10**6})
+
+
+def slot_runs(st, t):
+    """Tile t's valid entries, slot by slot, as the kernel compacts them:
+    keys q << 31 | gid (int64) in window order."""
+    n = st.key_sorted.shape[0]
+    qmask = (1 << st.qbits) - 1
+    runs = []
+    for s, (b, (dy, dx)) in enumerate(zip(st.budgets, st.dydx)):
+        pos = int(st.al[t, s]) * tbg.ALIGN + torch.arange(b + tbg.ALIGN)
+        p = pos.clamp(0, n - 1)
+        key, gw = st.key_sorted[p].long(), st.gw_sorted[p].long()
+        win = gw >> tbg.GID_BITS
+        valid = ((pos >= 0) & (pos < n) & (pos >= int(st.lo[t, s])) & (pos < int(st.hi[t, s]))
+                 & (dy < (win >> 2)) & (dx < (win & 3)))
+        runs.append((((key & qmask) << 31) | (gw & tbg.GID_MASK))[valid])
+    return runs
+
+
+def rank_merge(st, K):
+    """The kernel's merge in torch: entry i of run s goes to rank i plus its
+    lower bound in every other run, entries at i >= K skipped; (ids, counts)
+    as banked_lists gives them. Asserts that the ranks are a permutation."""
+    ids = torch.full((st.num_tiles, K), -1, dtype=torch.long)
+    counts = torch.zeros(st.num_tiles, dtype=torch.int32)
+    for t in range(st.num_tiles):
+        runs = slot_runs(st, t)
+        n_valid = sum(len(r) for r in runs)
+        ranks = []
+        for s, r in enumerate(runs):
+            x = r[:K]
+            rank = torch.arange(len(x)) + sum(
+                (torch.searchsorted(r2, x) for s2, r2 in enumerate(runs) if s2 != s),
+                torch.zeros(len(x), dtype=torch.long))
+            ranks.append(rank)
+            ids[t, rank[rank < K]] = x[rank < K] & tbg.GID_MASK
+        ranks = torch.cat(ranks)
+        assert len(torch.unique(ranks)) == len(ranks)
+        assert torch.equal(torch.sort(ranks[ranks < K]).values, torch.arange(min(n_valid, K)))
+        counts[t] = min(n_valid, K)
+    return ids, counts
+
+
+MERGE_IDS = CASE_IDS + ["ties", "empty-tiles"]
+
+
+@pytest.fixture(scope="module")
+def merge_streams():
+    """The streams of CASES, of the 600-way tie and of an image with empty
+    tiles, by id: (streams, K)."""
+    out = {}
+    for name, (shape, tile, K) in zip(CASE_IDS, CASES):
+        out[name] = ttiling.banked_streams(tpg(project(population(), shape)), shape, 8, K, *tile), K
+    pg = project(population(n=500, ties=600), (32, 256))
+    out["ties"] = ttiling.banked_streams(tpg(pg), (32, 256), 8, 128), 128
+    pg = project(population(n=300, spread=0.2), (64, 256))
+    out["empty-tiles"] = ttiling.banked_streams(tpg(pg), (64, 256), 8, 128, 16, 16), 128
+    return out
+
+
+@pytest.mark.parametrize("name", MERGE_IDS[:-1])
+def test_slot_runs_are_sorted_and_disjoint(merge_streams, name):
+    """The merge's premise on the real streams: each (tile, slot)'s valid
+    entries strictly increase in q << 31 | gid, and no gid lies in two slots
+    of one tile (the slots read different groups)."""
+    st, _ = merge_streams[name]
+    seen = 0
+    for t in range(st.num_tiles):
+        runs = slot_runs(st, t)
+        for r in runs:
+            assert bool((r[1:] > r[:-1]).all()), (t, r)
+        gids = torch.cat(runs) & tbg.GID_MASK
+        assert len(torch.unique(gids)) == len(gids)
+        seen += len(gids)
+    assert seen > 0
+
+
+@pytest.mark.parametrize("name", MERGE_IDS)
+def test_rank_merge_equals_flat_sort(merge_streams, name):
+    """The kernel's algorithm (compaction, searchsorted ranks, the i >= K
+    skip) gives banked_lists_plain's lists, empty tiles included."""
+    st, K = merge_streams[name]
+    kw = dict(budgets=st.budgets, dydx=st.dydx, qbits=st.qbits, num_tiles=st.num_tiles,
+              max_per_tile=K)
+    ids_p, counts_p = tbg.banked_lists_plain(*st[:5], **kw)
+    ids, counts = rank_merge(st, K)
+    assert torch.equal(counts, counts_p) and torch.equal(ids, ids_p)
+    assert int(counts.max()) > 0
+    if name == "empty-tiles":
+        assert int((counts == 0).sum()) > 0
+
+
+@pytest.mark.parametrize("name", MERGE_IDS)
+def test_bound_counts_the_runs(merge_streams, name):
+    """chip_smoke's bound of the banked kernel counts each word that some
+    run [lo, hi) covers once, 10 operations per run entry and the merge's
+    compares per valid entry: the lists read nothing else of the windows."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    st, K = merge_streams[name]
+    T, S = st.lo.shape
+    n_valid = sum(len(r) for t in range(T) for r in slot_runs(st, t))
+    ops, nbytes, entries = cs.banked_lists_work(st, K, n_valid)
+    covered = set()
+    for lo, hi in zip(st.lo.reshape(-1).tolist(), st.hi.reshape(-1).tolist()):
+        covered.update(range(lo, hi))
+    assert entries == int((st.hi - st.lo).sum()) >= n_valid
+    assert nbytes == 8 * len(covered) + 12 * T * S + 8 * T * K + 4 * T
+    assert ops == 10 * entries + math.ceil(math.log2(S)) * n_valid
+
+
+def test_shared_memory_gate(monkeypatch):
+    """A K whose budgets need more than a block's 232,448 bytes of shared
+    memory takes the per-slot branch, with JAX's lists; the K values of the
+    raster scales (1024 at 320x448, 4 tiles across; 256 at 640x960, 8
+    across) stay inside and take the kernel."""
+    shape = (32, 256)
+    budgets = lambda K: ttiling._banked_budgets(K, 2, 8)[0]
+    assert tbg.smem_bytes(budgets(4224)) <= tbg.SMEM_LIMIT < tbg.smem_bytes(budgets(4352))
+    assert ttiling.banked_uses_kernel(4000, 2, 8, 4224)
+    assert not ttiling.banked_uses_kernel(4000, 2, 8, 4352)
+    assert ttiling.banked_uses_kernel(860_160, 4, 8, 1024)
+    assert ttiling.banked_uses_kernel(3_686_400, 8, 8, 256)
+    assert tbg.smem_bytes(budgets(1024)) == 66_560 and tbg.smem_bytes(budgets(256)) == 37_888
+    pg = project(population(), shape)
+    calls = spy_lists(monkeypatch)
+    b = ttiling.bin_gaussians_banked(tpg(pg), shape, 8, 4352, merge="flat")
+    assert not calls
+    ref = jax.jit(lambda p: jtiling.bin_gaussians_banked(p, shape, 8, 4352))(jpg(pg))
+    assert_lists_equal(b, ref)
 
 
 def test_tied_depths_at_a_truncating_budget():

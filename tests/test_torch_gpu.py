@@ -1,6 +1,6 @@
 """Card-only tests of the port: the CUDA kernels (forward and backward
-compositor at four tile shapes, segment-sum scatter, banked stream
-gather) against their plain PyTorch versions, and the rasterizer on the
+compositor at four tile shapes, segment-sum scatter, banked
+gather-and-merge) against their plain PyTorch versions, and the rasterizer on the
 card against the same code on the CPU. Every test here needs a CUDA card
 and skips without one.
 
@@ -319,25 +319,42 @@ def test_render_matches_cpu(cuda):
     image_close(depth_g, depth_c)
 
 
-@pytest.mark.parametrize("shape", [(64, 256), (64, 96)], ids=["ntx2", "ntx1"])
-def test_banked_gather_matches_plain(cuda, shape):
-    """Bit for bit, at two tiles across (window 2x4) and one (window 1x8),
-    on streams that a K of 128 truncates."""
+@pytest.mark.parametrize("shape,K,padded", [
+    ((64, 256), 128, True), ((64, 96), 128, True), ((64, 256), 128, False),
+    ((64, 256), None, True), ((64, 96), None, True),
+], ids=["ntx2", "ntx1", "ntx2-unpadded", "ntx2-K-at-limit", "ntx1-K-at-limit"])
+def test_banked_gather_matches_plain(cuda, shape, K, padded):
+    """(ids, counts) bit for bit against banked_lists_plain, at two tiles
+    across (window 2x4) and one (window 1x8): on streams that a K of 128
+    truncates; on the unpadded streams, whose last windows reach past the
+    end (guarded loads in place of bulk copies); at the largest K (None)
+    whose shared memory the gate admits."""
+    ntx = -(-shape[1] // 128)
+    if K is None:
+        K = max(k for k in range(128, 8192, 128) if tiling.banked_uses_kernel(20000, ntx, 8, k))
+        assert not tiling.banked_uses_kernel(20000, ntx, 8, K + 128)
     sc = scene(n=20000)
     pg = projection.project_gaussians(*(sc[k].to(cuda) for k in ARGS), shape)
-    st = tiling.banked_streams(pg, shape, 8, 128)
-    assert len(st.budgets) == 8 and (st.hi - st.lo).max() == 128
-    kw = dict(budgets=st.budgets, dydx=st.dydx, qbits=st.qbits, num_tiles=st.num_tiles)
-    launches = banked_gather.gather_streams.launches
-    pk, gid = banked_gather.gather_streams(*st[:5], **kw)
+    st = tiling.banked_streams(pg, shape, 8, K)
+    assert len(st.budgets) == 8 and tiling.banked_uses_kernel(20000, ntx, 8, K)
+    if K == 128:
+        assert (st.hi - st.lo).max() == 128
+    kw = dict(budgets=st.budgets, dydx=st.dydx, qbits=st.qbits, num_tiles=st.num_tiles,
+              max_per_tile=K)
+    streams = st[:2] if padded else (st.key_sorted[:20000], st.gw_sorted[:20000])
+    if not padded:
+        last = st.al.long() * 128 + torch.tensor([b + 128 for b in st.budgets], device=cuda)
+        assert (last > 20000).any()
+    launches = banked_gather.banked_lists.launches
+    ids, counts = banked_gather.banked_lists(*streams, *st[2:5], **kw)
     torch.cuda.synchronize()
-    assert banked_gather.gather_streams.launches == launches + 1
-    pk_p, gid_p = banked_gather.gather_streams_plain(*st[:5], **kw)
-    assert torch.equal(pk, pk_p) and torch.equal(gid, gid_p)
-    assert (gid != banked_gather.INVALID_GID).any()
+    assert banked_gather.banked_lists.launches == launches + 1
+    ids_p, counts_p = banked_gather.banked_lists_plain(*st[:5], **kw)
+    assert torch.equal(ids, ids_p) and torch.equal(counts, counts_p)
+    assert int(counts.max()) > 0
     # The lists through the kernel equal the per-slot branch's.
-    flat = tiling.bin_gaussians_banked(pg, shape, 8, 128, merge="flat")
-    sort = tiling.bin_gaussians_banked(pg, shape, 8, 128, merge="sort")
+    flat = tiling.bin_gaussians_banked(pg, shape, 8, K, merge="flat")
+    sort = tiling.bin_gaussians_banked(pg, shape, 8, K, merge="sort")
     assert torch.equal(flat.gaussian_ids, sort.gaussian_ids) and torch.equal(flat.counts, sort.counts)
 
 
@@ -354,9 +371,9 @@ def test_banked_render_matches_cpu(cuda):
         rgb = api.render(*cams, SHAPE, torch.zeros(1, 3, device=d), *leaves, **kw)
         return rgb, torch.autograd.grad((rgb ** 2).mean(), leaves)
 
-    launches = banked_gather.gather_streams.launches
+    launches = banked_gather.banked_lists.launches
     rgb_g, grads_g = run(cuda)
-    assert banked_gather.gather_streams.launches == launches + 1
+    assert banked_gather.banked_lists.launches == launches + 1
     rgb_c, grads_c = run("cpu")
     image_close(rgb_g.detach(), rgb_c.detach())
     for a, b in zip(grads_g, grads_c):
@@ -367,28 +384,52 @@ def test_banked_gather_rejects_bad_input(cuda):
     sc = scene()
     pg = projection.project_gaussians(*(sc[k].to(cuda) for k in ARGS), SHAPE)
     st = tiling.banked_streams(pg, SHAPE, 8, 128)
-    kw = dict(budgets=st.budgets, dydx=st.dydx, qbits=st.qbits, num_tiles=st.num_tiles)
-    gather = banked_gather.gather_streams
-    gather(*st[:5], **kw)
+    kw = dict(budgets=st.budgets, dydx=st.dydx, qbits=st.qbits, num_tiles=st.num_tiles,
+              max_per_tile=128)
+    lists = banked_gather.banked_lists
+    lists(*st[:5], **kw)
     strided = torch.stack([st.al, st.al], dim=-1)[..., 0]
     for i, bad in ((0, st.key_sorted.long()), (1, st.gw_sorted.cpu()), (2, strided),
-                   (3, st.lo.float()), (4, st.hi.t().contiguous().t())):
+                   (3, st.lo.float()), (4, st.hi.t().contiguous().t()),
+                   (0, st.key_sorted[1:]), (1, st.gw_sorted[2:])):
         args = list(st[:5])
         args[i] = bad
+        if i < 2 and bad.dtype == torch.int32 and bad.is_cuda:   # misaligned start
+            args[1 - i] = args[1 - i][:bad.shape[0]]
         with pytest.raises(ValueError):
-            gather(*args, **kw)
+            lists(*args, **kw)
+    with pytest.raises(ValueError):      # over a block's shared memory
+        big = tiling._banked_budgets(8192, 2, 8)[0]
+        lists(*st[:5], **{**kw, "budgets": big, "max_per_tile": 8192})
     # Streams cut short of the last window: the wrapper checks shapes only
     # (no wait for the card), and the kernel reads every position past the
-    # end as no entry.
+    # end as no entry: the lists of the full streams with every run cut at n.
     n = 200
-    launches = gather.launches
-    pk, gid = gather(st.key_sorted[:n], st.gw_sorted[:n], *st[2:5], **kw)
+    launches = lists.launches
+    ids, counts = lists(st.key_sorted[:n], st.gw_sorted[:n], *st[2:5], **kw)
     torch.cuda.synchronize()
-    assert gather.launches == launches + 1
+    assert lists.launches == launches + 1
     pos = torch.cat([st.al[:, s, None].long() * 128 + torch.arange(b + 128, device=cuda)[None]
                      for s, b in enumerate(st.budgets)], dim=1)
     assert (pos >= n).any()
-    assert (gid[pos >= n] == banked_gather.INVALID_GID).all()
-    full_pk, full_gid = gather(*st[:5], **kw)
-    inside = pos < n
-    assert torch.equal(gid[inside], full_gid[inside]) and torch.equal(pk[inside], full_pk[inside])
+    cut = torch.clamp(st.hi, max=n)
+    ids_p, counts_p = banked_gather.banked_lists_plain(st.key_sorted, st.gw_sorted, st.al,
+                                                       torch.clamp(st.lo, max=n), cut, **kw)
+    assert torch.equal(ids, ids_p) and torch.equal(counts, counts_p)
+    assert int(counts.max()) > 0
+
+
+def test_banked_binning_waits_for_nothing(cuda):
+    """bin_gaussians_banked queues all its work without a host sync (no
+    list copied to the card, no read back), so the host can run ahead of
+    the card in a raster step."""
+    sc = scene()
+    pg = projection.project_gaussians(*(sc[k].to(cuda) for k in ARGS), SHAPE)
+    first = tiling.bin_gaussians_banked(pg, SHAPE, 8, 128)   # makes the constant rows
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = tiling.bin_gaussians_banked(pg, SHAPE, 8, 128)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(again.gaussian_ids, first.gaussian_ids)
