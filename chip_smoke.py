@@ -71,6 +71,25 @@ Phases; each one that fails stops the run with a non-zero exit:
   8. profile: one more request, one more train step and one more raster
              step at each scale under torch.profiler; the kernels and ops
              that take the most device time, and the port's own kernels.
+  9. eval:   the Evaluator on the train phase's model (synthetic 320x448
+             test views, 5 source views): evaluate_view without refinement
+             and with the flagship's refined arm (400 Adam steps per start,
+             3 field-depth rounds), pose_targets at 400 steps, time_render,
+             and evaluate_dataset on 2 views into a temporary directory.
+             psnr, ssim and the *_unaligned errors must be finite, the
+             refined 6-vectors finite, results.json strict JSON; each view
+             must launch the forward kernel twice per render (the final
+             one, and one per refinement round) and no other. Prints ms per
+             view, refined and not, ms per Adam step, render_ms, launches
+             and peak memory.
+ 10. loop:   train_loop on a full-width 'joint' trainer for 3 steps
+             (n_tensorboard 1, n_checkpoint 2) in a temporary directory,
+             then a fresh trainer resumes from `latest` to step 4. The
+             saved weights must equal the trainer's bit for bit, the
+             resumed run must start at step 3 and end at 4 with both
+             optimizer counts 4, metrics.jsonl must hold steps 1-4, and
+             each step must launch (fwd, bwd, scatter) = (2, 1, 1). Prints
+             seconds per checkpoint save and the checkpoint's size.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or outside a checkout
 of the repository, it prints no result and exits non-zero.
@@ -104,6 +123,9 @@ STEP_LAUNCHES = {"joint": (2, 1, 1, 0), "nerf_only": (2, 1, 1, 0), "pose_only": 
 RASTER_SCALES = (((320, 448), 10), ((640, 960), 5))
 # Launches per raster fwd+bwd step, in the same order as STEP_LAUNCHES.
 RASTER_STEP_LAUNCHES = (1, 1, 1, 1)
+# The flagship's refined eval arm (tools/run_flagship.py:360): Adam steps per
+# start and field-depth rounds.
+REFINE_STEPS, REFINE_ROUNDS = 400, 3
 
 
 def bound(ops, nbytes, rate=H100_FP32_FLOPS):
@@ -362,30 +384,6 @@ def make_request(seed: int, image_shape, n_views: int, num_source_views: int, sh
     return to_device(shim({"context": ex["context"], "target": ex["target"]}), device)
 
 
-def small_config(config):
-    """The widths of the CPU parity tests (__graft_entry__._tiny_cfg)."""
-    return config.pretrain_config(**{
-        "encoder.d_feature": 32, "encoder.num_monocular_samples": 8,
-        "encoder.gaussians_per_pixel": 2, "encoder.backbone.model": "resnet18",
-        "encoder.backbone.num_layers": 3, "encoder.backbone.d_out": 32,
-        "encoder.gaussian_adapter.sh_degree": 1,
-        "encoder.epipolar_transformer.num_samples": 4,
-        "encoder.epipolar_transformer.num_octaves": 4,
-        "encoder.epipolar_transformer.num_layers": 1,
-        "encoder.epipolar_transformer.num_heads": 2,
-        "encoder.epipolar_transformer.d_dot": 16,
-        "encoder.epipolar_transformer.d_mlp": 32,
-        "encoder.epipolar_transformer.self_attention.patch_size": 2,
-        "encoder.epipolar_transformer.self_attention.num_octaves": 4,
-        "encoder.epipolar_transformer.self_attention.num_layers": 1,
-        "encoder.epipolar_transformer.self_attention.num_heads": 2,
-        "encoder.epipolar_transformer.self_attention.d_token": 16,
-        "encoder.epipolar_transformer.self_attention.d_dot": 16,
-        "encoder.epipolar_transformer.self_attention.d_mlp": 32,
-        "decoder.max_per_tile": 128,
-    })
-
-
 def bench_inputs(image_shape, device, seed: int = 0, gpp: int = 3, pairs: int = 2):
     """bench.py's scene (bench.py:29-54): gpp Gaussians per pixel for each of
     `pairs` context pairs, uniform means in front of an identity camera,
@@ -605,6 +603,183 @@ def raster_step(api, cams, leaves, image, kw):
     return step
 
 
+def show_profile(prof, what: str, wall_ms: float, tag: str) -> float:
+    """The device kernel time of a torch.profiler run against its wall
+    time, the kernels and ops that take the most, and the port's own.
+    Returns the device kernel time in ms. User annotations (the
+    optimizer's step range) are ranges over kernels, not kernels: left
+    out of the sum."""
+    from torch.autograd import DeviceType
+
+    dev_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+    on_card = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+    total_us = sum(dev_us(e) for e in on_card)
+    print(f"profile: {what}, {total_us / 1e3:.1f} ms of device kernel time in {wall_ms:.1f} ms {tag}")
+    top = sorted(on_card, key=dev_us, reverse=True)
+    own = ("composite_", "banked_lists", "segment_sum")
+    for e in top[:10] + [e for e in top[10:] if any(k in e.key for k in own)]:
+        print(f"  kernel {dev_us(e) / 1e3:9.2f} ms {e.count:5d}x  {e.key[:100]}")
+    ops = [e for e in prof.key_averages(group_by_input_shape=True)
+           if e.device_type == DeviceType.CPU and e.key.startswith("aten::") and dev_us(e) > 0]
+    for e in sorted(ops, key=dev_us, reverse=True)[:8]:
+        print(f"  op     {dev_us(e) / 1e3:9.2f} ms {e.count:5d}x  {e.key} {str(e.input_shapes)[:110]}")
+    return total_us / 1e3
+
+
+def scene_views(image, seeds, mode: str, num_source_views: int = 5) -> list:
+    """Collated views of synthetic 8-view scenes at `image`, one per seed."""
+    from ggrt_official_torch.data import datasets
+
+    return [datasets.collate_batch(datasets.SyntheticPlanesDataset(
+        datasets.SyntheticSceneSpec(n_views=8, image_size=image, seed=seed), mode=mode,
+        num_source_views=num_source_views)[0]) for seed in seeds]
+
+
+def eval_phase(cfg, model, kernels, tag: str, device="cuda", image=IMAGE,
+               refine_steps: int = REFINE_STEPS) -> dict:
+    """Phase 9: the Evaluator at full width. Returns the times, the
+    launches of each call, the peak memory and the dataset summary; the
+    caller checks the launches."""
+    import tempfile
+
+    import torch
+
+    from ggrt_official_torch.data import datasets
+    from ggrt_official_torch.evaluation.harness import Evaluator
+
+    ev = Evaluator(cfg, model, refine_depth_rounds=REFINE_ROUNDS, device=device)
+    views = scene_views(image, (10, 11), "test")
+    ev.evaluate_view(views[0])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    made, ms = {}, {}
+
+    def run(name, fn):
+        before = counts(*kernels)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        made[name] = tuple(a - b for a, b in zip(counts(*kernels), before))
+        return out
+
+    plain = run("view", lambda: ev.evaluate_view(views[1]))
+    refined = run("refined view", lambda: ev.evaluate_view(views[1], refine_steps=refine_steps))
+    targets = run("pose_targets", lambda: ev.pose_targets(views[1], steps=refine_steps))
+    render_ms = run("time_render", lambda: ev.time_render(views[1], iters=3))
+    ds = datasets.SyntheticPlanesDataset(datasets.SyntheticSceneSpec(n_views=8, image_size=image, seed=12),
+                                         mode="test", num_source_views=5)
+    with tempfile.TemporaryDirectory() as tmp:
+        summary = run("evaluate_dataset", lambda: ev.evaluate_dataset(ds, out_dir=tmp, limit=2))
+
+        def refuse(name):
+            fail(f"results.json holds the non-strict constant {name}")
+
+        with open(Path(tmp) / "results.json") as f:
+            results = json.loads(f.read(), parse_constant=refuse)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # Where a refinement step's time goes: pose_targets under the profiler
+    # at 0 and at 20 steps per start; the difference over 40 is the device
+    # time of one Adam step (pose_targets renders nothing, so it launches
+    # no kernel).
+    dev = {}
+    for steps in (0, 20):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            ev.pose_targets(views[1], steps=steps)
+            torch.cuda.synchronize()
+        dev[steps] = show_profile(prof, f"pose_targets at {steps} steps per start ({2 * steps} Adam steps, "
+                                  f"the IPO-Net pass, 2 losses)", (time.perf_counter() - t0) * 1e3, tag)
+    step_dev_ms = (dev[20] - dev[0]) / 40
+    for name, out in (("view", plain), ("refined view", refined)):
+        bad = [k for k in ("psnr", "ssim", *(k for k in out if k.endswith("_unaligned")))
+               if not math.isfinite(out[k])]
+        print(f"eval: {name}: psnr {out['psnr']!r}, ssim {out['ssim']!r}, R_error_mean_unaligned "
+              f"{out['R_error_mean_unaligned']!r} deg, t_error_mean_unaligned {out['t_error_mean_unaligned']!r}, "
+              f"alignment_valid {out['alignment_valid']!r}")
+        if bad:
+            fail(f"eval {name}: non-finite {bad}")
+    if not (targets.shape == (5, 6) and bool(torch.isfinite(torch.as_tensor(targets)).all())):
+        fail(f"pose_targets: {targets!r}")
+    if not (results["summary"]["n_views"] == 2 and len(results["per_view"]) == 2
+            and results["summary"]["lpips"] is None and "lpips_status" in results["summary"]):
+        fail(f"results.json summary: {results['summary']}")
+    adam_steps = 2 * refine_steps
+    print(f"eval: ms per view {ms['view']!r} without refinement, {ms['refined view']!r} with "
+          f"{REFINE_ROUNDS} rounds x 2 starts x {refine_steps} Adam steps; pose_targets "
+          f"({adam_steps} Adam steps and the IPO-Net pass) {ms['pose_targets']!r} ms, "
+          f"{ms['pose_targets'] / adam_steps!r} ms per Adam step, of it {step_dev_ms!r} ms of device "
+          f"kernel time (profiler); time_render {render_ms!r} ms per "
+          f"render (3 iterations); evaluate_dataset on 2 views {ms['evaluate_dataset']!r} ms, its "
+          f"render_ms {summary['render_ms']!r}; peak {peak:.2f} GiB {tag}")
+    print(f"eval: launches (fwd, bwd, scatter, gather): " + ", ".join(f"{k} {v}" for k, v in made.items()))
+    return dict(ms=ms, made=made, peak=peak, render_ms=render_ms, summary=summary)
+
+
+def loop_phase(kernels, tag: str, device="cuda", cfg=None, image=IMAGE) -> dict:
+    """Phase 10: train_loop at full width, a checkpoint, a resume. Returns
+    the launches per step, the save time and size; the caller checks the
+    launches."""
+    import tempfile
+
+    import torch
+
+    from ggrt_official_torch import config
+    from ggrt_official_torch.training.checkpoint import STATE_FILE, CheckPointManager
+    from ggrt_official_torch.training.loop import checkpoint_state, train_loop
+    from ggrt_official_torch.training.trainer import GGRtTrainer
+
+    cfg = cfg or config.pretrain_config()
+    cfg.train.n_tensorboard, cfg.train.n_checkpoint = 1, 2
+    # train_loop draws the next batch after each step, the last one too.
+    views = scene_views(image, range(20, 25), "train")
+
+    def batches(start):
+        yield from views[start:]
+
+    trainer = GGRtTrainer(cfg, device=device)
+    trainer.init_full()
+    with tempfile.TemporaryDirectory() as tmp:
+        before = counts(*kernels)
+        t0 = time.perf_counter()
+        train_loop(trainer, batches(0), tmp, n_iters=3)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        first = tuple(a - b for a, b in zip(counts(*kernels), before))
+        payload = CheckPointManager(str(Path(tmp) / "checkpoints")).load()
+        saved = {k: v.to(trainer.device) for k, v in payload["state"]["model"].items()}
+        live = trainer.model.state_dict()
+        same = saved.keys() == live.keys() and all(torch.equal(saved[k], live[k]) for k in live)
+        print(f"loop: 3 'joint' steps in {first_s!r} s with 2 checkpoint saves; latest at step "
+              f"{payload['step']}, weights {'equal' if same else 'DIFFER FROM'} the trainer's bit for bit")
+        if payload["step"] != 3 or not same:
+            fail("loop: the checkpoint at `latest` is not the trainer's state at step 3")
+        t0 = time.perf_counter()
+        CheckPointManager(str(Path(tmp) / "timed")).save(3, checkpoint_state(trainer))
+        save_s = time.perf_counter() - t0
+        size_mb = (Path(tmp) / "timed" / "ckpt_00000003" / STATE_FILE).stat().st_size / 1e6
+        del trainer, saved, live, payload
+
+        resumed = GGRtTrainer(cfg, device=device)
+        resumed.init_full()
+        before = counts(*kernels)
+        train_loop(resumed, batches(3), tmp, n_iters=4)
+        torch.cuda.synchronize()
+        second = tuple(a - b for a, b in zip(counts(*kernels), before))
+        log = (Path(tmp) / "log.txt").read_text()
+        steps = [json.loads(line)["step"] for line in (Path(tmp) / "metrics.jsonl").read_text().splitlines()]
+        st = resumed.state
+        print(f"loop: resumed ({'resumed from step 3' in log}) to step {st.step}, optimizer counts "
+              f"gaussian {st.gaussian_opt.count} pose {st.pose_opt.count}; metrics.jsonl steps {steps}")
+        if not ("resumed from step 3" in log and st.step == 4 and st.gaussian_opt.count == 4
+                and st.pose_opt.count == 4 and steps == [1, 2, 3, 4]):
+            fail("loop: the resumed run did not continue from step 3 to 4")
+    print(f"loop: checkpoint save {save_s!r} s, {size_mb!r} MB (weights, two Adam states, generator) {tag}")
+    return dict(made=(first, second), save_s=save_s, size_mb=size_mb)
+
+
 def main() -> None:
     import torch
 
@@ -615,7 +790,6 @@ def main() -> None:
     sys.path.insert(0, str(ROOT))
 
     from ggrt_official_torch import config
-    from ggrt_official_torch.data import datasets
     from ggrt_official_torch.data.shims import get_data_shim
     from ggrt_official_torch.models.decoder_splatting import effective_max_per_tile
     from ggrt_official_torch.models.pixelsplat import PixelSplat
@@ -755,7 +929,7 @@ def main() -> None:
     # of the CPU tests: with 10 depth octaves the epipolar positional
     # encoding multiplies float32 triangulation noise by up to 2π·512, and
     # any two devices disagree.
-    small = small_config(config)
+    small = config.tiny_config()
     small_gpu = PixelSplat(small.encoder, small.decoder, device=dev).eval()
     small_cpu = PixelSplat(small.encoder, small.decoder, device="cpu").eval()
     small_cpu.load_state_dict(small_gpu.state_dict())
@@ -772,9 +946,7 @@ def main() -> None:
     # 5. train: reset the counts, drive the train path, read the counts.
     trainer = GGRtTrainer(config.pretrain_config(), device=dev)
     trainer.init_full()
-    scenes = [datasets.collate_batch(datasets.SyntheticPlanesDataset(
-        datasets.SyntheticSceneSpec(n_views=8, image_size=IMAGE, seed=seed),
-        num_source_views=cfg.train.num_source_views)[0]) for seed in range(len(TRAIN_MACHINES) + 2)]
+    scenes = scene_views(IMAGE, range(len(TRAIN_MACHINES) + 2), "train", cfg.train.num_source_views)
     groups = {"pose_learner": list(trainer.model.pose_learner.parameters()),
               "gaussian": list(trainer.model.gaussian.parameters())}
     open_groups = {"joint": ("pose_learner", "gaussian"), "nerf_only": ("gaussian",),
@@ -895,22 +1067,10 @@ def main() -> None:
     # 8. where the time goes: one profiled request and one profiled train
 
     # step (not counted in the main paths above).
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     def show(prof, what, wall_ms):
-        dev_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-        on_card = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        total_us = sum(dev_us(e) for e in on_card)
-        print(f"profile: {what}, {total_us / 1e3:.1f} ms of device kernel time in {wall_ms:.1f} ms {tag}")
-        top = sorted(on_card, key=dev_us, reverse=True)
-        own = ("composite_", "banked_lists", "segment_sum")
-        for e in top[:10] + [e for e in top[10:] if any(k in e.key for k in own)]:
-            print(f"  kernel {dev_us(e) / 1e3:9.2f} ms {e.count:5d}x  {e.key[:100]}")
-        ops = [e for e in prof.key_averages(group_by_input_shape=True)
-               if e.device_type == DeviceType.CPU and e.key.startswith("aten::") and dev_us(e) > 0]
-        for e in sorted(ops, key=dev_us, reverse=True)[:8]:
-            print(f"  op     {dev_us(e) / 1e3:9.2f} ms {e.count:5d}x  {e.key} {str(e.input_shapes)[:110]}")
+        show_profile(prof, what, wall_ms, tag)
 
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with torch.inference_mode(), profile(activities=activities, record_shapes=True) as prof:
@@ -929,6 +1089,32 @@ def main() -> None:
             r["step"]()
             torch.cuda.synchronize()
         show(prof, f"one raster fwd+bwd step at {name}", (time.perf_counter() - t0) * 1e3)
+    del raster, comp_sets, comp, fo, fwd_out, full, rec, col, cnt, seg_args, plain, timing
+    torch.cuda.empty_cache()
+
+    # 9. eval: reset the counts, drive the eval path, read the counts.
+    t0 = time.perf_counter()
+    reset(*kernels)
+    ev = eval_phase(cfg, trainer.model, kernels, tag)
+    launches["eval"] = counts(*kernels)
+    want = {"view": (2, 0, 0, 0), "refined view": (2 + 2 * REFINE_ROUNDS, 0, 0, 0), "pose_targets": (0, 0, 0, 0)}
+    for name, w in want.items():
+        if ev["made"][name] != w:
+            fail(f"eval {name}: launches (fwd, bwd, scatter, gather) {ev['made'][name]}, not {w}")
+    print(f"eval: ok in {time.perf_counter() - t0:.1f} s; composite_fwd launches 2 per view and 2 per "
+          f"refinement round {tag}", flush=True)
+    del trainer, groups, scenes
+    torch.cuda.empty_cache()
+
+    # 10. loop: reset the counts, drive the loop path, read the counts.
+    t0 = time.perf_counter()
+    reset(*kernels)
+    lp = loop_phase(kernels, tag)
+    launches["loop"] = counts(*kernels)
+    if lp["made"] != ((6, 3, 3, 0), (2, 1, 1, 0)):
+        fail(f"loop: launches (fwd, bwd, scatter, gather) {lp['made']}, not (6, 3, 3, 0) then (2, 1, 1, 0)")
+    print(f"loop: ok in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"timing: launches (fwd, bwd, scatter, gather): eval {launches['eval']}, loop {launches['loop']}")
 
     sources = {
         "composite_fwd": ("ggrt_official_torch/csrc/composite_fwd.cu",
@@ -954,7 +1140,8 @@ def main() -> None:
             "launches": n, "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
         })
-    if not (launches["serve"][0] and all(launches["train"][:3]) and all(launches["raster"])):
+    if not (launches["serve"][0] and all(launches["train"][:3]) and all(launches["raster"])
+            and launches["eval"][0] and all(launches["loop"][:3])):
         fail(f"a kernel of a path was not launched: {launches}")
     print(smi)
     print(json.dumps({"kernels": table}))

@@ -231,3 +231,39 @@ def load_config(yaml_path: Optional[str] = None, overrides: Optional[dict] = Non
 def pretrain_config(**overrides) -> GGRtConfig:
     """configs/pretrain_ggrt_stable.yaml equivalents (the dataclass defaults)."""
     return apply_overrides(GGRtConfig(), overrides)
+
+
+def tiny_config() -> GGRtConfig:
+    """The smoke-test widths of the scripts' --tiny (the JAX package's
+    __graft_entry__._tiny_cfg), field for field, with the decoder's default
+    "cuda" backend: the kernels on the card, their plain versions on the CPU."""
+    return pretrain_config(**{
+        "encoder.d_feature": 32,
+        "encoder.num_monocular_samples": 8,
+        "encoder.gaussians_per_pixel": 2,
+        "encoder.backbone.model": "resnet18",
+        "encoder.backbone.num_layers": 3,
+        "encoder.backbone.d_out": 32,
+        "encoder.gaussian_adapter.sh_degree": 1,
+        "encoder.epipolar_transformer.num_samples": 4,
+        "encoder.epipolar_transformer.num_octaves": 4,
+        "encoder.epipolar_transformer.num_layers": 1,
+        "encoder.epipolar_transformer.num_heads": 2,
+        "encoder.epipolar_transformer.d_dot": 16,
+        "encoder.epipolar_transformer.d_mlp": 32,
+        "encoder.epipolar_transformer.downscale": 4,
+        "encoder.epipolar_transformer.self_attention.patch_size": 2,
+        "encoder.epipolar_transformer.self_attention.num_octaves": 4,
+        "encoder.epipolar_transformer.self_attention.num_layers": 1,
+        "encoder.epipolar_transformer.self_attention.num_heads": 2,
+        "encoder.epipolar_transformer.self_attention.d_token": 16,
+        "encoder.epipolar_transformer.self_attention.d_dot": 16,
+        "encoder.epipolar_transformer.self_attention.d_mlp": 32,
+        "decoder.max_per_tile": 128,
+        "decoder.tile_chunk": 4,
+        "iponet.iters": 4,
+        "iponet.seq_len": 2,
+        "iponet.foutput_dim": 32,
+        "iponet.hidden_dim": 32,
+        "iponet.context_dim": 8,
+    })

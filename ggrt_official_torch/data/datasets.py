@@ -137,6 +137,19 @@ class SyntheticSceneSpec:
     plane_span: str = "legacy"
 
 
+def flagship_scene_spec(seed: int = 0, image_size=(64, 96), n_views: int = 12):
+    """The flagship's pose-learning scene, field for field the JAX
+    package's (its docstring there gives the reasons): binary alphas,
+    6-degree wobble at arc 1.4 around z 4, 4 texture octaves, focal 0.7 of
+    the width, planes at 1.5-8 that cover the frustum."""
+    return SyntheticSceneSpec(
+        n_views=n_views, image_size=image_size, seed=seed, binary_alpha=True,
+        look_at_z=4.0, rot_wobble_deg=6.0, arc_scale=1.4,
+        texture_octaves=4, focal_factor=0.7, plane_depths=(1.5, 8.0),
+        plane_span="cover",
+    )
+
+
 class SyntheticPlanesDataset:
     """Procedural multi-view scene: textured alpha planes at fixed depths,
     cameras on an arc, exact pinhole projection."""

@@ -70,7 +70,6 @@ def photometric_decay_loss(
     n_iters = inv_depths.shape[0]
     nv = ref_imgs.shape[0]
     poses = poses[0]                                          # (nv, n_iters, 6)
-    big = torch.tensor(1e4, dtype=image.dtype, device=image.device)
     target = image.expand(nv, *image.shape[1:])
     Ks = K.expand(nv, 3, 3)
     auto = _photometric_map(ref_imgs, target, ssim_weight, C1, C2, clip) if automask else None
@@ -83,7 +82,9 @@ def photometric_decay_loss(
         res = _photometric_map(warped, target, ssim_weight, C1, C2, clip)   # (nv, 1, h, w)
         valids = valid
         if valid_mask:
-            res = torch.where(valid > 0.5, res, big)
+            # A Python scalar: a tensor made on the host would be copied to
+            # the card, which waits for it, on every call.
+            res = torch.where(valid > 0.5, res, 1e4)
         if oob_weight > 0.0:
             oob_terms.append(torch.clamp(coords.abs() - 1.0, min=0.0).pow(2).mean(dim=(1, 2, 3)))
         residuals = res

@@ -48,8 +48,10 @@ class GGRtModel(nn.Module):
         self.pose_learner.to(device)
         self.gaussian = PixelSplat(cfg.encoder, cfg.decoder, device=device, generator=generator)
 
-    def iponet(self, target_image, ref_imgs, target_camera, ref_cameras, min_depth, max_depth):
-        """Run IPO-Net and the photometric SfM loss.
+    def iponet(self, target_image, ref_imgs, target_camera, ref_cameras, min_depth, max_depth,
+               compute_sfm_loss: bool = True):
+        """Run IPO-Net and, when `compute_sfm_loss`, the photometric SfM loss
+        (sfm is None otherwise: the evaluator's pose pass needs no loss).
 
         target_image (1, h, w, 3) and ref_imgs (1, nv, h, w, 3), the loader's
         layout; cameras (1, 34) and (1, nv, 34). Returns (inv_depths,
@@ -61,10 +63,12 @@ class GGRtModel(nn.Module):
         refs = ref_imgs[0].permute(0, 3, 1, 2)
         out: IPONetOutput = self.pose_learner(tgt, refs, target_K, ref_K,
                                               min_depth=min_depth, max_depth=max_depth)
-        sfm = photometric_decay_loss(
-            tgt, refs, out.inv_depths, target_K, ref_K, out.rel_poses,
-            valid_mask=self.cfg.train.sfm_valid_mask, oob_weight=self.cfg.train.sfm_oob_weight,
-        )
+        sfm = None
+        if compute_sfm_loss:
+            sfm = photometric_decay_loss(
+                tgt, refs, out.inv_depths, target_K, ref_K, out.rel_poses,
+                valid_mask=self.cfg.train.sfm_valid_mask, oob_weight=self.cfg.train.sfm_oob_weight,
+            )
         return out.inv_depths, out.rel_poses[0], sfm, out.fmap
 
     def pose_teacher_render(self, batch, cams_c2w, global_step):

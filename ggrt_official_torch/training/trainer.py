@@ -130,6 +130,14 @@ def _to_device(tree, device):
     return tree.to(device) if isinstance(tree, torch.Tensor) else tree
 
 
+def prepare_batch(batch: dict, data_shim, device) -> dict:
+    """Shim a loader's numpy batch and move it to `device`."""
+    batch = {k: v for k, v in batch.items() if k not in ("rgb_path", "scaled_shape")}
+    shimmed = data_shim({"context": batch["context"], "target": batch["target"]})
+    batch["context"], batch["target"] = shimmed["context"], shimmed["target"]
+    return _to_device(batch, device)
+
+
 class GGRtTrainer:
     """Generalizable training (pretrain_ggrt_stable equivalent)."""
 
@@ -148,10 +156,7 @@ class GGRtTrainer:
 
     def prepare_batch(self, batch: dict) -> dict:
         """Shim the loader's numpy batch and move it to the device."""
-        batch = {k: v for k, v in batch.items() if k not in ("rgb_path", "scaled_shape")}
-        shimmed = self.data_shim({"context": batch["context"], "target": batch["target"]})
-        batch["context"], batch["target"] = shimmed["context"], shimmed["target"]
-        return _to_device(batch, self.device)
+        return prepare_batch(batch, self.data_shim, self.device)
 
     def init_full(self) -> TrainState:
         """Build the composite model (pose learner + Gaussian model) with

@@ -433,3 +433,28 @@ def test_banked_binning_waits_for_nothing(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert torch.equal(again.gaussian_ids, first.gaussian_ids)
+
+
+def test_refinement_waits_for_nothing(cuda):
+    """The evaluator's test-time refinement queues every Adam step and the
+    pick between its two starts without a host sync (no scalar copied to
+    the card, no read back), so the host can run ahead of the card."""
+    from ggrt_official_torch.config import tiny_config
+    from ggrt_official_torch.evaluation.harness import Evaluator
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    h, w, nv = 32, 64, 3
+    tgt = torch.rand(1, 3, h, w, generator=gen, device=cuda)
+    refs = torch.rand(nv, 3, h, w, generator=gen, device=cuda)
+    inv = 0.2 + 0.3 * torch.rand(1, 1, h, w, generator=gen, device=cuda)
+    K = torch.tensor([[[40.0, 0.0, 31.5], [0.0, 40.0, 15.5], [0.0, 0.0, 1.0]]], device=cuda)
+    vec0 = 0.02 * torch.randn(nv, 6, generator=gen, device=cuda)
+    ev = Evaluator(tiny_config(), None, device=cuda)
+    first = ev._refine(vec0, inv, tgt, refs, K, K.expand(nv, 3, 3), steps=3)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = ev._refine(vec0, inv, tgt, refs, K, K.expand(nv, 3, 3), steps=3)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert again.shape == first.shape == (nv, 6) and torch.isfinite(again).all()
