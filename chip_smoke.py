@@ -90,6 +90,28 @@ Phases; each one that fails stops the run with a non-zero exit:
              optimizer counts 4, metrics.jsonl must hold steps 1-4, and
              each step must launch (fwd, bwd, scatter) = (2, 1, 1). Prints
              seconds per checkpoint save and the checkpoint's size.
+ 11. finetune: GGRtFinetuneTrainer(finetune_config()) at full width on
+             a synthetic 12-view 320x448 scene with 7 source views (6 context pairs:
+             5,160,960 Gaussians in the full render, 1,290,240 in each of
+             the crop_size² = 4 tiles), seeded random weights: one warm-up
+             step, then 3 timed 'joint' steps. loss_all and psnr must be
+             finite, both parameter groups must move (the pose learner by
+             the SfM loss, the Gaussian model by the injected pixel
+             gradients), and each step must launch (fwd, bwd, scatter,
+             gather) = (5, 4, 4, 0). Prints ms per step and of its three
+             parts (CUDA events: the IPO-Net pass with its backward, the full
+             render without gradients, the tiles), and the peak memory
+             beside the 5-view pretrain steps'.
+ 12. cache:  the flagship's cache A/B: GGRtTrainer and CachedGGRtTrainer
+             with the same seeded weights at pretrain_config() width,
+             'nerf_only' over 6 examples of one synthetic 12-view scene
+             (consecutive targets, overlapping context windows), one
+             warm-up pass and one timed pass each. Every loss must be
+             finite, the cached trainer must hit in the timed pass, every
+             cached tensor must be on the card and detached, and each step
+             of both must launch (2, 1, 1, 0). Prints ms per step off and
+             on, the hits and misses of the timed pass, and the cache's
+             entries and bytes.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or outside a checkout
 of the repository, it prints no result and exits non-zero.
@@ -780,6 +802,165 @@ def loop_phase(kernels, tag: str, device="cuda", cfg=None, image=IMAGE) -> dict:
     return dict(made=(first, second), save_s=save_s, size_mb=size_mb)
 
 
+def finetune_phase(kernels, tag: str, device="cuda", cfg=None, image=IMAGE, steps: int = 3) -> dict:
+    """Phase 11: GGRtFinetuneTrainer at full width, 7 source views (6
+    context pairs), crop_size 2, seeded random weights, on consecutive
+    examples of one synthetic 12-view scene: one warm-up step, then `steps`
+    timed 'joint' steps. Returns the launches of each timed
+    step, the ms per step and of its three parts (CUDA events around
+    pose_pass, pixel_grads and tile_pass), the largest update of each
+    parameter group per step, the losses and the peak memory; the caller
+    checks them."""
+    import torch
+
+    from ggrt_official_torch import config
+    from ggrt_official_torch.training.trainer import GGRtFinetuneTrainer
+
+    cfg = cfg or config.finetune_config()
+    trainer = GGRtFinetuneTrainer(cfg, device=device)
+    trainer.init_full()
+    views = scene_sequence(image, steps + 1, cfg.train.num_source_views, seed=40)
+    parts = {"pose_pass": [], "pixel_grads": [], "tile_pass": []}
+
+    def timed(name):
+        fn = getattr(trainer, name)
+
+        def run(*args, **kwargs):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            parts[name].append((start, end))
+            return out
+        return run
+
+    for name in parts:
+        setattr(trainer, name, timed(name))
+    groups = {"pose_learner": list(trainer.model.pose_learner.parameters()),
+              "gaussian": list(trainer.model.gaussian.parameters())}
+    trainer.train_iteration(views[-1], "joint")  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for v in parts.values():
+        v.clear()
+    made, step_ms, moved, losses = [], [], [], []
+    for i in range(steps):
+        snap = {k: [p.detach().clone() for p in ps] for k, ps in groups.items()}
+        before = counts(*kernels)
+        t0 = time.perf_counter()
+        aux = trainer.train_iteration(views[i], "joint")
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        made.append(tuple(a - b for a, b in zip(counts(*kernels), before)))
+        moved.append({k: max(float((p.detach() - q).abs().max()) for p, q in zip(groups[k], snap[k]))
+                      for k in groups})
+        losses.append({k: float(aux[k]) for k in ("loss_all", "psnr")})
+        del snap
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    part_ms = {k: [s.elapsed_time(e) for s, e in v] for k, v in parts.items()}
+    ctx = trainer.prepare_batch(views[0])["context"]
+    # What each tile spends in the backbone: its forward and backward on
+    # the step's context pairs (the shared-backbone follow-up would save
+    # all but one of these per step).
+    from ggrt_official_torch.models.pixelsplat import make_pair_batch
+
+    pairs_ctx = make_pair_batch(ctx)
+
+    def backbone():
+        trainer.model.gaussian.encoder(pairs_ctx, 0, just_return_features=True).sum().backward()
+
+    backbone()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        backbone()
+    end.record()
+    torch.cuda.synchronize()
+    backbone_ms = start.elapsed_time(end) / 3
+    trainer.state.zero_grad()
+    b, v, _, h, w = ctx["image"].shape
+    enc = cfg.encoder
+    per_pixel = enc.num_surfaces * enc.gaussians_per_pixel
+    c = cfg.train.crop_size
+    g_full, g_tile = b * (v - 1) * 2 * h * w * per_pixel, b * (v - 1) * 2 * (h // c) * (w // c) * per_pixel
+    for i in range(steps):
+        print(f"finetune: step {i}: loss_all {losses[i]['loss_all']!r}, psnr {losses[i]['psnr']!r}; "
+              f"launches (fwd, bwd, scatter, gather) {made[i]}; max |update| "
+              + ", ".join(f"{k} {x:.3e}" for k, x in moved[i].items()) + f"; {step_ms[i]!r} ms (IPO-Net "
+              f"pass {part_ms['pose_pass'][i]!r}, full render {part_ms['pixel_grads'][i]!r}, "
+              f"{c * c} tiles {part_ms['tile_pass'][i]!r} ms, CUDA events)", flush=True)
+    print(f"finetune: the backbone's forward and backward on the step's {b * (v - 1)} pairs "
+          f"{backbone_ms!r} ms (CUDA events, 3 runs), run once per tile", flush=True)
+    del trainer, groups
+    return dict(made=made, step_ms=step_ms, part_ms=part_ms, moved=moved, losses=losses, peak=peak,
+                pairs=b * (v - 1), g_full=g_full, g_tile=g_tile, backbone_ms=backbone_ms)
+
+
+def scene_sequence(image, n: int, num_source_views: int, seed: int) -> list:
+    """n examples of one synthetic 12-view scene in train mode (9 train
+    views, so up to 8 source views): consecutive targets, whose context
+    windows overlap."""
+    from ggrt_official_torch.data import datasets
+
+    ds = datasets.SyntheticPlanesDataset(
+        datasets.SyntheticSceneSpec(n_views=12, image_size=image, seed=seed), mode="train",
+        num_source_views=num_source_views)
+    return [datasets.collate_batch(ds[i]) for i in range(n)]
+
+
+def cache_phase(kernels, tag: str, device="cuda", cfg=None, image=IMAGE) -> dict:
+    """Phase 12: the flagship's cache A/B (tools/run_flagship.py:458-500) on
+    the card: GGRtTrainer and CachedGGRtTrainer with the same seeded
+    weights, 'nerf_only' over a sequence of 6 examples of one scene (5
+    source views), one
+    warm-up pass and one timed pass each. Returns per trainer the ms per
+    step, the launches of each timed step and the losses, and the cached
+    trainer's hits and misses over the timed pass and its cache; the caller
+    checks them."""
+    import torch
+
+    from ggrt_official_torch import config
+    from ggrt_official_torch.training.trainer import GGRtTrainer
+    from ggrt_official_torch.training.trainer_cached import CachedGGRtTrainer
+
+    cfg = cfg or config.pretrain_config()
+    # Every step of a pass leaves at least one pair to encode.
+    seq = scene_sequence(image, 6, 5, seed=30)
+    out = {}
+    for name, cls in (("off", GGRtTrainer), ("on", CachedGGRtTrainer)):
+        trainer = cls(cfg, device=device)
+        trainer.init_full()
+        for ex in seq:  # warm-up pass
+            trainer.train_iteration(ex, "nerf_only")
+        torch.cuda.synchronize()
+        hits0, misses0 = getattr(trainer, "hits", 0), getattr(trainer, "misses", 0)
+        made, losses = [], []
+        t0 = time.perf_counter()
+        for ex in seq:
+            before = counts(*kernels)
+            aux = trainer.train_iteration(ex, "nerf_only")
+            made.append(tuple(a - b for a, b in zip(counts(*kernels), before)))
+            losses.append(aux["loss_all"])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / len(seq)
+        losses = [float(x) for x in losses]
+        out[name] = dict(ms=ms, made=made, losses=losses)
+        if name == "on":
+            cache = trainer.cache
+            out[name].update(hits=trainer.hits - hits0, misses=trainer.misses - misses0,
+                             entries=len(cache), nbytes=cache.nbytes(),
+                             detached=all(x.is_cuda and not x.requires_grad
+                                          for g in cache.store.values() for x in g))
+        print(f"cache {name}: {ms!r} ms per 'nerf_only' step over {len(seq)} steps after a warm-up pass; "
+              f"losses {', '.join(f'{x:.6f}' for x in losses)}; launches per step {made}"
+              + (f"; hits {out[name]['hits']}, misses {out[name]['misses']} over the timed pass; cache "
+                 f"{out[name]['entries']} entries, {out[name]['nbytes']} bytes" if name == "on" else "")
+              + f" {tag}", flush=True)
+        del trainer
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -1115,6 +1296,57 @@ def main() -> None:
         fail(f"loop: launches (fwd, bwd, scatter, gather) {lp['made']}, not (6, 3, 3, 0) then (2, 1, 1, 0)")
     print(f"loop: ok in {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"timing: launches (fwd, bwd, scatter, gather): eval {launches['eval']}, loop {launches['loop']}")
+    torch.cuda.empty_cache()
+
+    # The earlier phases' models and tensors go, so that each later peak is
+    # the phase's own.
+    del model, requests, g, pg, b, b16, ragged, keep, cnt16
+    torch.cuda.empty_cache()
+
+    # 11. finetune: reset the counts, drive the finetune path, read the counts.
+    t0 = time.perf_counter()
+    reset(*kernels)
+    ft = finetune_phase(kernels, tag)
+    launches["finetune"] = counts(*kernels)
+    c = config.finetune_config().train.crop_size
+    want = (1 + c * c, c * c, c * c, 0)
+    if (ft["pairs"], ft["g_full"], ft["g_tile"]) != (6, 5_160_960, 1_290_240):
+        fail(f"finetune: {ft['pairs']} pairs, {ft['g_full']} and {ft['g_tile']} Gaussians, not 6, "
+             f"5,160,960 and 1,290,240")
+    if any(m != want for m in ft["made"]):
+        fail(f"finetune: launches (fwd, bwd, scatter, gather) per step {ft['made']}, not {want}")
+    if not all(math.isfinite(x) for lo in ft["losses"] for x in lo.values()):
+        fail(f"finetune: non-finite loss_all or psnr {ft['losses']}")
+    if not all(m[k] > 0 for m in ft["moved"] for k in m):
+        fail(f"finetune: a parameter group did not move {ft['moved']}")
+    mean = lambda xs: sum(xs) / len(xs)
+    print(f"finetune: ok in {time.perf_counter() - t0:.1f} s; {ft['pairs']} context pairs, "
+          f"{ft['g_full']} Gaussians in the full render, {ft['g_tile']} in each tile; ms per step "
+          f"{mean(ft['step_ms'])!r} (IPO-Net pass {mean(ft['part_ms']['pose_pass'])!r}, full render "
+          f"{mean(ft['part_ms']['pixel_grads'])!r}, tiles {mean(ft['part_ms']['tile_pass'])!r}); peak "
+          f"{ft['peak']:.2f} GiB against {train_peak_gib:.2f} GiB for the 5-view pretrain steps {tag}",
+          flush=True)
+    torch.cuda.empty_cache()
+
+    # 12. cache A/B: reset the counts, drive both trainers, read the counts.
+    t0 = time.perf_counter()
+    reset(*kernels)
+    ab = cache_phase(kernels, tag)
+    launches["cache"] = counts(*kernels)
+    for name in ("off", "on"):
+        if any(m != (2, 1, 1, 0) for m in ab[name]["made"]):
+            fail(f"cache {name}: launches per step {ab[name]['made']}, not (2, 1, 1, 0)")
+        if not all(math.isfinite(x) for x in ab[name]["losses"]):
+            fail(f"cache {name}: a non-finite loss {ab[name]['losses']}")
+    if not ab["on"]["hits"] > 0:
+        fail("cache on: no hit in the timed pass")
+    if not ab["on"]["detached"]:
+        fail("cache on: a cached tensor is off the card or requires grad")
+    print(f"cache: ok in {time.perf_counter() - t0:.1f} s; ms per step off {ab['off']['ms']!r}, on "
+          f"{ab['on']['ms']!r} ({ab['on']['ms'] / ab['off']['ms']!r} of off); hits {ab['on']['hits']}, "
+          f"misses {ab['on']['misses']} {tag}", flush=True)
+    print(f"timing: launches (fwd, bwd, scatter, gather): finetune {launches['finetune']}, cache "
+          f"{launches['cache']}")
 
     sources = {
         "composite_fwd": ("ggrt_official_torch/csrc/composite_fwd.cu",
@@ -1141,7 +1373,8 @@ def main() -> None:
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
         })
     if not (launches["serve"][0] and all(launches["train"][:3]) and all(launches["raster"])
-            and launches["eval"][0] and all(launches["loop"][:3])):
+            and launches["eval"][0] and all(launches["loop"][:3]) and all(launches["finetune"][:3])
+            and all(launches["cache"][:3])):
         fail(f"a kernel of a path was not launched: {launches}")
     print(smi)
     print(json.dumps({"kernels": table}))

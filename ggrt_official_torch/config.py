@@ -233,6 +233,23 @@ def pretrain_config(**overrides) -> GGRtConfig:
     return apply_overrides(GGRtConfig(), overrides)
 
 
+def finetune_config(**overrides) -> GGRtConfig:
+    """configs/finetune_ggrt_stable.yaml equivalents: per-scene finetune with
+    7 source views (6 context pairs), a lower learning rate, the dataset's
+    poses and no depth loss; crop_size stays 2."""
+    cfg = GGRtConfig()
+    cfg.train.expname = "finetune_dgaussian_stable"
+    cfg.train.train_dataset = "llff_test"
+    cfg.train.dataset_weights = (1.0,)
+    cfg.train.num_source_views = 7
+    cfg.train.n_iters = 5000
+    cfg.train.use_pred_pose = False
+    cfg.train.use_depth_loss = False
+    cfg.train.optimizer = OptimizerCfg(lr=5e-5, warm_up_steps=500)
+    cfg.train.lrate_decay_pose_steps = 2000
+    return apply_overrides(cfg, overrides)
+
+
 def tiny_config() -> GGRtConfig:
     """The smoke-test widths of the scripts' --tiny (the JAX package's
     __graft_entry__._tiny_cfg), field for field, with the decoder's default

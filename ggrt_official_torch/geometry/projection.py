@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from ..constants import device_constant
+
 _F32_EPS = float(torch.finfo(torch.float32).eps)
 
 
@@ -40,7 +42,7 @@ def invert_se3(T: torch.Tensor) -> torch.Tensor:
     Rt = R.transpose(-1, -2)
     t_inv = -torch.einsum("...ij,...j->...i", Rt, t)
     top = torch.cat([Rt, t_inv[..., None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=T.dtype, device=T.device)
+    bottom = device_constant((0.0, 0.0, 0.0, 1.0), T.dtype, T.device)
     bottom = bottom.expand(*top.shape[:-2], 1, 4)
     return torch.cat([top, bottom], dim=-2)
 
@@ -152,14 +154,14 @@ def get_fov(intrinsics: torch.Tensor) -> torch.Tensor:
     k_inv = invert_intrinsics(intrinsics)
 
     def bearing(v):
-        v = torch.tensor(v, dtype=intrinsics.dtype, device=intrinsics.device)
+        v = device_constant(v, intrinsics.dtype, intrinsics.device)
         v = torch.einsum("...ij,j->...i", k_inv, v)
         return v / torch.linalg.norm(v, dim=-1, keepdim=True)
 
-    left = bearing([0.0, 0.5, 1.0])
-    right = bearing([1.0, 0.5, 1.0])
-    top = bearing([0.5, 0.0, 1.0])
-    bottom = bearing([0.5, 1.0, 1.0])
+    left = bearing((0.0, 0.5, 1.0))
+    right = bearing((1.0, 0.5, 1.0))
+    top = bearing((0.5, 0.0, 1.0))
+    bottom = bearing((0.5, 1.0, 1.0))
     fov_x = torch.arccos(torch.clamp((left * right).sum(dim=-1), -1.0, 1.0))
     fov_y = torch.arccos(torch.clamp((top * bottom).sum(dim=-1), -1.0, 1.0))
     return torch.stack([fov_x, fov_y], dim=-1)

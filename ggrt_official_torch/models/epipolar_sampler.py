@@ -81,11 +81,19 @@ def sample_epipolar(
     near: torch.Tensor,          # (b, v)
     far: torch.Tensor,           # (b, v)
     num_samples: int,
+    rays: tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None = None,
 ) -> EpipolarSampling:
     """Sample `num_samples` feature vectors along each ray's epipolar
-    segment in every other view."""
+    segment in every other view.
+
+    `rays` optionally gives (xy, origins, directions) in place of the
+    whole grid's: the crop path of deferred back-propagation samples for
+    one tile's rays only, from the whole feature maps."""
     b, v, hf, wf, c = features.shape
-    xy_ray, origins, directions = generate_image_rays((hf, wf), extrinsics, intrinsics)
+    if rays is None:
+        xy_ray, origins, directions = generate_image_rays((hf, wf), extrinsics, intrinsics)
+    else:
+        xy_ray, origins, directions = rays
     r = origins.shape[2]
     s = num_samples
 

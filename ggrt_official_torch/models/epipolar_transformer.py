@@ -100,8 +100,17 @@ class EpipolarTransformer(nn.Module):
         intrinsics: torch.Tensor,   # (b, v, 3, 3)
         near: torch.Tensor,         # (b, v)
         far: torch.Tensor,          # (b, v)
+        rays: tuple | None = None,
+        token_slice: tuple[int, int, int, int] | None = None,
     ) -> tuple[torch.Tensor, EpipolarSampling]:
-        """Returns refined features (b, v, h, w, c) and the sampling record."""
+        """Returns refined features (b, v, h, w, c) and the sampling record.
+
+        The crop path of deferred back-propagation passes the tile's `rays`
+        (see sample_epipolar) and its `token_slice` (y0, x0, hq, wq) in
+        downscaled tokens: sampling, attention, the upscaler and the
+        refinement convolutions then run on the tile's queries only, while
+        the sampled source features stay whole. Returns (b, v, hq·ds,
+        wq·ds, c) then."""
         c = self.cfg
         b, v, h, w, ch = features.shape
         d = self.d_in
@@ -112,7 +121,7 @@ class EpipolarTransformer(nn.Module):
             down = x.permute(0, 2, 3, 1).reshape(b, v, h // c.downscale, w // c.downscale, d)
         hd, wd = down.shape[2], down.shape[3]
 
-        sampling = sample_epipolar(down, extrinsics, intrinsics, near, far, c.num_samples)
+        sampling = sample_epipolar(down, extrinsics, intrinsics, near, far, c.num_samples, rays=rays)
 
         kv = sampling.features
         if c.num_octaves > 0:
@@ -128,16 +137,23 @@ class EpipolarTransformer(nn.Module):
             depths = depth_to_relative_disparity(depths, n5, f5)
             kv = kv + self.depth_encoding(depths[..., None])
 
-        # Queries: the downscaled pixel tokens; keys/values: the epipolar
-        # samples for that pixel across the other views.
-        q = down.reshape(b * v * hd * wd, 1, d)
+        # Queries: the (tile's) downscaled pixel tokens; keys/values: the
+        # epipolar samples for that pixel across the other views.
+        if token_slice is not None:
+            y0, x0, hq, wq = token_slice
+            q_tokens = down[:, :, y0:y0 + hq, x0:x0 + wq]
+        else:
+            q_tokens, hq, wq = down, hd, wd
+        r = kv.shape[3]
+        assert r == hq * wq, f"ray/token mismatch: {r} vs {hq}x{wq}"
+        q = q_tokens.reshape(b * v * hq * wq, 1, d)
         s = kv.shape[4]
-        kv_flat = kv.permute(0, 1, 3, 2, 4, 5).reshape(b * v * hd * wd, (v - 1) * s, d)
-        out = self.transformer(q, z=kv_flat, bv=b * v, h=hd, w=wd)
-        out = out.reshape(b, v, hd, wd, d)
+        kv_flat = kv.permute(0, 1, 3, 2, 4, 5).reshape(b * v * hq * wq, (v - 1) * s, d)
+        out = self.transformer(q, z=kv_flat, bv=b * v, h=hq, w=wq)
+        out = out.reshape(b, v, hq, wq, d)
 
         if c.downscale:
-            up = self.upscaler(out.reshape(b * v, hd, wd, d).permute(0, 3, 1, 2))
+            up = self.upscaler(out.reshape(b * v, hq, wq, d).permute(0, 3, 1, 2))
             out = up + self.upscale_refinement(up)
-            out = out.permute(0, 2, 3, 1).reshape(b, v, h, w, d)
+            out = out.permute(0, 2, 3, 1).reshape(b, v, hq * c.downscale, wq * c.downscale, d)
         return out, sampling

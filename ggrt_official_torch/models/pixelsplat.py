@@ -7,7 +7,7 @@ never mixes batch entries.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -19,12 +19,17 @@ from .encoder_epipolar import EncoderEpipolar
 from .gaussian_adapter import Gaussians
 
 
-def make_pair_batch(context: dict) -> dict:
+def make_pair_batch(context: dict, order: Optional[Sequence[int]] = None) -> dict:
     """Stack the v-1 adjacent view pairs onto the batch axis: (b, v, ...)
-    tensors become (b*(v-1), 2, ...)."""
+    tensors become (b*(v-1), 2, ...). `order` optionally permutes the views
+    first (the reference sorts them by frame index, pixelsplat.py:177-184);
+    it is a host sequence of view indices, so that no index is copied to
+    the device."""
     v = context["image"].shape[1]
 
     def cut(t):
+        if order is not None:
+            t = torch.stack([t[:, int(k)] for k in order], dim=1)
         pairs = torch.stack([t[:, k:k + 2] for k in range(v - 1)], dim=1)
         return pairs.reshape(-1, 2, *t.shape[2:])
 
@@ -61,12 +66,25 @@ class PixelSplat(nn.Module):
         self.to(device)
 
     def encode_pairs(self, context: dict, global_step, deterministic: bool = False,
-                     uniforms: Optional[torch.Tensor] = None) -> Gaussians:
-        """Encode all adjacent context pairs into one merged Gaussian set."""
+                     uniforms: Optional[torch.Tensor] = None, order: Optional[Sequence[int]] = None,
+                     features: Optional[torch.Tensor] = None,
+                     crop: Optional[tuple[int, int, int]] = None) -> Gaussians:
+        """Encode all adjacent context pairs into one merged Gaussian set.
+        `features` (b, v, h, w, d) are the context views' backbone features
+        (encode_features); `crop` encodes one tile (EncoderEpipolar)."""
         b = context["image"].shape[0]
-        g = self.encoder(make_pair_batch(context), global_step,
-                         deterministic=deterministic, uniforms=uniforms)
+        pair_feats = None
+        if features is not None:
+            pair_feats = make_pair_batch({"image": features}, order)["image"]
+        g = self.encoder(make_pair_batch(context, order), global_step,
+                         deterministic=deterministic, uniforms=uniforms,
+                         features=pair_feats, crop=crop)
         return merge_pair_gaussians(g, b)
+
+    def encode_features(self, context: dict, global_step) -> torch.Tensor:
+        """The backbone's projected features of the context views (b, v, h,
+        w, d), for encode_pairs(features=...)."""
+        return self.encoder(context, global_step, just_return_features=True)
 
     def forward(
         self,
@@ -75,13 +93,16 @@ class PixelSplat(nn.Module):
         deterministic: bool = False,
         uniforms: Optional[torch.Tensor] = None,
         depth_mode: Optional[str] = "depth",
+        crop: Optional[tuple[int, int, int]] = None,
     ) -> tuple[dict, dict]:
         """Returns (ret, target_gt): ret['rgb'] (b, v_t, 3, h, w) and
-        ret['depth'] (b, v_t, h, w), as the reference does."""
+        ret['depth'] (b, v_t, h, w) (None without `depth_mode`), as the
+        reference does. With `crop` only one tile's Gaussians are encoded,
+        and the whole target view is rendered from them."""
         target = batch["target"]
         h, w = target["image"].shape[-2:]
-        gaussians = self.encode_pairs(batch["context"], global_step,
-                                      deterministic=deterministic, uniforms=uniforms)
+        gaussians = self.encode_pairs(batch["context"], global_step, deterministic=deterministic,
+                                      uniforms=uniforms, crop=crop)
         out: DecoderOutput = self.decoder(
             gaussians, target["extrinsics"], target["intrinsics"],
             target["near"], target["far"], (h, w), depth_mode=depth_mode,

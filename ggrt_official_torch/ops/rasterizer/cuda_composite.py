@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ...constants import device_constant
 from ..cuda_kernel import INT, PTR, CudaKernel, check_tensors
 from .projection import ALPHA_MAX, ALPHA_MIN, T_EPS, ProjectedGaussians
 from .segment_sum import scatter_add_rows
@@ -146,7 +147,7 @@ def footprint_boxes(records: torch.Tensor, tile_h: int, tile_w: int) -> torch.Te
         box = torch.stack([mx - hx, mx + hx, my - hy, my + hy], dim=1)
         finite = torch.isfinite(records[:, :5]).all(dim=1)
         live = (op >= ALPHA_MIN) & finite                     # False for NaN opacity
-        none = torch.tensor([float("inf"), -float("inf")] * 2, device=records.device)
+        none = device_constant((float("inf"), -float("inf")) * 2, torch.float32, records.device)
         return torch.where(live[:, None], box, none[None, :, None])
 
 
@@ -157,7 +158,7 @@ def warp_keeps_plain(records: torch.Tensor, tile_h: int, tile_w: int) -> torch.T
     pix = warp_pixels(tile_h, tile_w).to(records.device)
     px, py = _pixel_basis(tile_h, tile_w, records.device)
     has = pix >= 0
-    inf = torch.tensor(float("inf"), device=records.device)
+    inf = device_constant(float("inf"), torch.float32, records.device)
     xs, ys = px[pix.clamp(min=0)], py[pix.clamp(min=0)]
     x0 = torch.where(has, xs, inf).amin(1)[None, :, None]   # (1, W, 1)
     x1 = torch.where(has, xs, -inf).amax(1)[None, :, None]

@@ -11,6 +11,7 @@ from typing import NamedTuple
 
 import torch
 
+from ...constants import device_constant
 from ...geometry.projection import get_fov, invert_se3
 from .. import sh as sh_ops
 
@@ -93,7 +94,7 @@ def project_gaussians(
     p_w = 1.0 / (torch.where(in_front, p_hom[..., 3], torch.ones_like(tz)) + 1e-7)
     p_ndc = p_hom[..., :3] * p_w[..., None]
 
-    size = torch.tensor([w, h], dtype=means.dtype, device=means.device)
+    size = device_constant((float(w), float(h)), means.dtype, means.device)
     mean2d = torch.clamp(ndc_to_pixel(p_ndc[..., :2], size), -1e6, 1e6)
 
     # EWA: cov2d = J W Σ Wᵀ Jᵀ with the CUDA kernel's frustum clamping.

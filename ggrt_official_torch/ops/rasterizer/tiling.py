@@ -23,11 +23,11 @@ Tile geometry is (tile_h, tile_w) = (8, 128) by default.
 """
 from __future__ import annotations
 
-from functools import lru_cache
 from typing import NamedTuple
 
 import torch
 
+from ...constants import device_constant
 from . import banked_gather as bg
 from .projection import ProjectedGaussians
 
@@ -63,14 +63,6 @@ def _quantize_depth(depth: torch.Tensor, visible: torch.Tensor, bits: int) -> to
     q = torch.clamp((depth - lo) / span, 0.0, 1.0) * ((1 << bits) - 2)
     q = q.to(torch.int32)
     return torch.where(visible, q, torch.full_like(q, (1 << bits) - 1))
-
-
-@lru_cache(maxsize=None)
-def _int_row(values: tuple, device: torch.device) -> torch.Tensor:
-    """A constant (len(values),) int32 tensor on `device`, made once: a
-    tensor built from a list is a host-to-device copy, which waits for the
-    device on every call."""
-    return torch.tensor(values, dtype=torch.int32, device=device)
 
 
 def _sort_pairs(major: torch.Tensor, minor: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -405,8 +397,8 @@ def _banked_sort(pg, image_shape, max_dup, max_per_tile, tile_h, tile_w) -> _Ban
     t_idx = torch.arange(num_tiles, dtype=torch.int32, device=dev)
     r = _floordiv(t_idx, ntx)
     c = t_idx - r * ntx
-    dy = _int_row(tuple(d[0] for d in dydx), dev)
-    dx = _int_row(tuple(d[1] for d in dydx), dev)
+    dy = device_constant(tuple(d[0] for d in dydx), torch.int32, dev)
+    dx = device_constant(tuple(d[1] for d in dydx), torch.int32, dev)
     src_r = r[:, None] - dy[None, :]
     src_c = c[:, None] - dx[None, :]
     grp_ok = (src_r >= 0) & (src_c >= 0)
@@ -422,7 +414,7 @@ def _banked_sort(pg, image_shape, max_dup, max_per_tile, tile_h, tile_w) -> _Ban
 
 def _banked_streams(b: _Banked) -> BankedStreams:
     g = b.key_sorted.shape[0]
-    L = _int_row(b.budgets, b.key_sorted.device)[None, :]
+    L = device_constant(tuple(b.budgets), torch.int32, b.key_sorted.device)[None, :]
     eff = torch.where(b.grp_ok, torch.minimum(b.seg_total, L), torch.zeros_like(b.seg_total))
     # Padded so that every window [al·128, al·128 + budget + 128) lies
     # inside: al·128 <= lo <= g, so a window ends by g + max(budgets) + 128

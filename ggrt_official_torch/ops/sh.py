@@ -13,6 +13,8 @@ import math
 import numpy as np
 import torch
 
+from ..constants import device_constant
+
 SH_C0 = 0.28209479177387814
 SH_C1 = 0.4886025119029199
 SH_C2 = (1.0925484305920792, -1.0925484305920792, 0.31539156525252005,
@@ -151,9 +153,9 @@ def sh_rotation_matrices(R: torch.Tensor, degree: int) -> list[torch.Tensor]:
         return mats
     # Degree-1 rotation in basis order (y, z, x), conjugated by
     # S = diag(-1, 1, -1) for the signed 3DGS basis (-y, z, -x).
-    idx = torch.tensor([1, 2, 0], device=R.device)
+    idx = device_constant((1, 2, 0), torch.int64, R.device)
     r1 = R[..., idx[:, None], idx[None, :]]
-    S = torch.tensor([-1.0, 1.0, -1.0], dtype=R.dtype, device=R.device)
+    S = device_constant((-1.0, 1.0, -1.0), R.dtype, R.device)
     r1_signed = r1 * S[:, None] * S[None, :]
     mats.append(r1_signed)
     r_prev = r1_signed

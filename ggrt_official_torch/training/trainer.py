@@ -1,11 +1,20 @@
-"""Generalizable pretraining: the GGRt train step (the reference's
-train_ggrt_stable.py:30-195, GGRtTrainer.train_iteration).
+"""Trainers: generalizable pretraining (the reference's
+train_ggrt_stable.py:30-195, GGRtTrainer.train_iteration) and the
+per-scene finetune with deferred back-propagation
+(finetune_ggrt_stable.py:81-160).
 
-One step: IPO-Net forward, detached inverse-depth prior, predicted poses
-injected into the context extrinsics, PixelSplat forward (rgb and depth
-renders), rgb + self-supervised depth + SfM losses, one backward, and the
-two state-machine-gated optimizer steps. The render's backward runs the
+One pretrain step: IPO-Net forward, detached inverse-depth prior, predicted
+poses injected into the context extrinsics, PixelSplat forward (rgb and
+depth renders), rgb + self-supervised depth + SfM losses, one backward, and
+the two state-machine-gated optimizer steps. The render's backward runs the
 compositor backward kernel and the segment-sum scatter kernel.
+
+One finetune step renders the whole target view without gradients, takes
+the rgb loss's gradient with respect to that image, and then re-renders
+from each tile of a crop_size x crop_size grid of the context views with
+gradients, back-propagating the matching slice of the pixel gradients: the
+Gaussian model's gradients add up over the tiles, while only one tile's
+graph is alive at a time.
 
 The trainer runs on `device` ("cuda" unless the caller asks for "cpu") and
 never moves work elsewhere. Its depth-sampling draws come from its own
@@ -169,12 +178,14 @@ class GGRtTrainer:
         self.state = TrainState(self.cfg, self.model)
         return self.state
 
-    def draw_uniforms(self, batch: dict) -> torch.Tensor:
+    def draw_uniforms(self, batch: dict, pairs: Optional[int] = None,
+                      pixels: Optional[int] = None) -> torch.Tensor:
         """Depth-sampling draws for a prepared batch, from the trainer's
-        generator: (pairs, 2, h·w, surfaces, gaussians_per_pixel)."""
+        generator: (pairs, 2, pixels, surfaces, gaussians_per_pixel), by
+        default every context pair and h·w pixels."""
         b, v, _, h, w = batch["context"]["image"].shape
         enc = self.cfg.encoder
-        shape = (b * (v - 1), 2, h * w, enc.num_surfaces, enc.gaussians_per_pixel)
+        shape = (pairs or b * (v - 1), 2, pixels or h * w, enc.num_surfaces, enc.gaussians_per_pixel)
         return torch.rand(shape, generator=self.generator, device=self.device)
 
     def train_iteration(self, batch: dict, machine: str = "joint",
@@ -192,3 +203,77 @@ class GGRtTrainer:
         loss_all.backward()
         self.state.apply_updates(machine_id)
         return {k: v.detach() for k, v in aux.items()}
+
+
+class GGRtFinetuneTrainer(GGRtTrainer):
+    """Per-scene finetune with crop-tiled deferred back-propagation (the JAX
+    package's GGRtFinetuneTrainer; there a lax.scan over the tiles bounds
+    the compile time, here the tiles are a plain loop). A step has three
+    parts, each a method: pose_pass, pixel_grads and tile_pass."""
+
+    def draw_step_uniforms(self, batch: dict) -> tuple[torch.Tensor, list[torch.Tensor]]:
+        """A step's depth-sampling draws for a prepared batch: the whole
+        render's (pairs, 2, h·w, srf, gpp) and each tile's (pairs, 2,
+        hc·wc, srf, gpp), from the trainer's generator."""
+        c = self.cfg.train.crop_size
+        h, w = batch["context"]["image"].shape[-2:]
+        full = self.draw_uniforms(batch)
+        return full, [self.draw_uniforms(batch, pixels=(h // c) * (w // c)) for _ in range(c * c)]
+
+    def pose_pass(self, batch: dict) -> torch.Tensor:
+        """IPO-Net with the SfM loss, back-propagated: the pose learner's
+        gradients come from it alone. Returns the relative poses."""
+        min_d, max_d = batch["depth_range"][0, 0], batch["depth_range"][0, 1]
+        _, rel_poses, sfm, _ = self.model.iponet(
+            batch["rgb"], batch["src_rgbs"], batch["camera"], batch["src_cameras"], min_d, max_d,
+            compute_sfm_loss=True)
+        sfm["loss"].backward()
+        return rel_poses
+
+    def pixel_grads(self, batch: dict, uniforms: torch.Tensor):
+        """The whole target view rendered without gradients, and the rgb
+        loss's gradient with respect to it: (rgb, gt, rgb_grad)."""
+        with torch.no_grad():
+            ret, gt = self.model.gaussian(batch, self.state.step, deterministic=False,
+                                          uniforms=uniforms.to(self.device), depth_mode=None)
+        rgb = ret["rgb"].requires_grad_(True)
+        (rgb_grad,) = torch.autograd.grad(masked_l2_image_loss({"rgb": rgb}, gt), rgb)
+        return rgb.detach(), gt, rgb_grad
+
+    def tile_pass(self, batch: dict, rgb_grad: torch.Tensor, uniforms: list[torch.Tensor]) -> None:
+        """Each tile of the crop_size x crop_size grid rendered with
+        gradients (row i = k // c, column j = k % c, the JAX package's
+        order), back-propagating the matching slice of `rgb_grad`; the
+        Gaussian model's .grad sums over the tiles, and each tile's graph
+        is freed before the next."""
+        c = self.cfg.train.crop_size
+        h, w = rgb_grad.shape[-2:]
+        out_h, out_w = h // c, w // c
+        for k in range(c * c):
+            i, j = divmod(k, c)
+            ret, _ = self.model.gaussian(batch, self.state.step, crop=(i, j, c), deterministic=False,
+                                         uniforms=uniforms[k].to(self.device), depth_mode=None)
+            rows, cols = slice(out_h * i, out_h * (i + 1)), slice(out_w * j, out_w * (j + 1))
+            ret["rgb"][..., rows, cols].backward(rgb_grad[..., rows, cols])
+            del ret
+
+    def train_iteration(self, batch: dict, machine: str = "joint", uniforms=None) -> dict:
+        """One finetune step on a loader batch; `uniforms` are the draws as
+        (whole, [tile_0, ..., tile_{c²-1}]), else drawn by
+        draw_step_uniforms. No render reads depth. Returns the detached aux:
+        loss_all and psnr of the whole render, rel_poses."""
+        if self.state is None:
+            raise RuntimeError("call init_full() first")
+        batch = self.prepare_batch(batch)
+        full_u, tile_u = uniforms if uniforms is not None else self.draw_step_uniforms(batch)
+        self.state.zero_grad()
+        rel_poses = self.pose_pass(batch)
+        # The predicted poses enter the renders as constants, whatever
+        # pose_render_grad says: in the JAX package the tiles' VJP is taken
+        # with respect to the parameters through concrete poses.
+        b = _inject_predicted_poses(batch, rel_poses) if self.cfg.train.use_pred_pose else batch
+        rgb, gt, rgb_grad = self.pixel_grads(b, full_u)
+        self.tile_pass(b, rgb_grad, tile_u)
+        self.state.apply_updates(state_lib.state_id(machine))
+        mse = img2mse(rgb, gt["rgb"])
+        return {"loss_all": mse, "psnr": mse2psnr(mse), "rel_poses": rel_poses.detach()}

@@ -458,3 +458,114 @@ def test_refinement_waits_for_nothing(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert again.shape == first.shape == (nv, 6) and torch.isfinite(again).all()
+
+
+def test_render_waits_for_nothing(cuda):
+    """A whole render at the decoder's settings (api.render through
+    DecoderSplatting: backend "cuda", sort binning, rgb and depth), forward
+    and backward, queues all its work without a host sync after one warm-up
+    call (which makes the cached constants): no tensor copied to the card,
+    nothing read back."""
+    from ggrt_official_torch.config import DecoderCfg
+    from ggrt_official_torch.models.decoder_splatting import DecoderSplatting
+    from ggrt_official_torch.models.gaussian_adapter import Gaussians
+
+    sc = scene()
+    leaves = [sc[k].to(cuda)[None].requires_grad_(True) for k in ARGS[:4]]
+    extr, intr = sc["extrinsics"].to(cuda)[None, None], sc["intrinsics"].to(cuda)[None, None]
+    near, far = sc["near"].to(cuda).reshape(1, 1), sc["far"].to(cuda).reshape(1, 1)
+    decoder = DecoderSplatting(DecoderCfg())
+    launches = cuda_composite.composite_fwd.launches
+
+    def step():
+        m, c, sh, o = leaves
+        g = Gaussians(m, c, sh, o, m, m)
+        out = decoder(g, extr, intr, near, far, SHAPE, depth_mode="depth")
+        return torch.autograd.grad((out.color ** 2).mean() + out.depth.mean(), leaves)
+
+    first = step()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert cuda_composite.composite_fwd.launches == launches + 4
+    for a, b in zip(again, first):
+        grad_close(a, b)
+
+
+def tiny_trainer(cls, cuda, **train):
+    """A trainer of class `cls` at tiny_config() widths with `train`
+    settings, built on the card."""
+    from ggrt_official_torch.config import apply_overrides, tiny_config
+
+    trainer = cls(apply_overrides(tiny_config(), {f"train.{k}": v for k, v in train.items()}), device=cuda)
+    trainer.init_full()
+    return trainer
+
+
+def tiny_example(view=0):
+    from ggrt_official_torch.data import datasets
+
+    ds = datasets.SyntheticPlanesDataset(datasets.SyntheticSceneSpec(n_views=8, image_size=(32, 64)),
+                                         num_source_views=3)
+    return datasets.collate_batch(ds[view])
+
+
+def test_deferred_bp_is_plain_autograd_on_card(cuda):
+    """On the card, with the kernels: at crop_size 1 the finetune step's
+    injected pixel gradients give the gradients of plain autograd of
+    masked_l2_image_loss on the whole render with the same draws, to
+    relative L2 1e-4 per group (float atomics sum in a varying order, so two
+    runs of one backward differ in the last bits)."""
+    import copy
+
+    from ggrt_official_torch.losses.criterion import masked_l2_image_loss
+    from ggrt_official_torch.models.ggrt import GGRtModel
+    from ggrt_official_torch.training.trainer import GGRtFinetuneTrainer
+
+    trainer = tiny_trainer(GGRtFinetuneTrainer, cuda, crop_size=1, use_pred_pose=False,
+                           **{"optimizer.grad_clip_norm": 0.0})
+    start = copy.deepcopy(trainer.model.state_dict())
+    ex = tiny_example()
+    batch = trainer.prepare_batch(ex)
+    u = trainer.draw_uniforms(batch)
+    counts = [k.launches for k in (cuda_composite.composite_fwd, cuda_composite.composite_bwd,
+                                   segment_sum.scatter_add_rows)]
+    trainer.train_iteration(ex, "joint", uniforms=(u, [u]))
+    made = [k.launches - c for k, c in zip((cuda_composite.composite_fwd, cuda_composite.composite_bwd,
+                                            segment_sum.scatter_add_rows), counts)]
+    assert made == [2, 1, 1]
+
+    ref = GGRtModel(trainer.cfg, device=cuda)
+    ref.load_state_dict(start)
+    min_d, max_d = batch["depth_range"][0, 0], batch["depth_range"][0, 1]
+    _, _, sfm, _ = ref.iponet(batch["rgb"], batch["src_rgbs"], batch["camera"], batch["src_cameras"],
+                              min_d, max_d)
+    ret, gt = ref.gaussian(batch, 0, deterministic=False, uniforms=u, depth_mode=None)
+    (sfm["loss"] + masked_l2_image_loss(ret, gt)).backward()
+
+    def flat(module):
+        return torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
+                          for p in module.parameters()]).double()
+
+    for group in ("pose_learner", "gaussian"):
+        got, want = flat(getattr(trainer.model, group)), flat(getattr(ref, group))
+        rel = float((got - want).norm() / want.norm())
+        assert want.norm() > 0 and rel <= 1e-4, (group, rel)
+
+
+def test_cached_step_keeps_detached_entries_on_card(cuda):
+    """A cached trainer's entries live on the card, detached, and a second
+    step on the same window hits every pair."""
+    from ggrt_official_torch.training.trainer_cached import CachedGGRtTrainer
+
+    trainer = tiny_trainer(CachedGGRtTrainer, cuda)
+    ex = tiny_example()
+    for _ in range(2):
+        aux = trainer.train_iteration(ex, "joint")
+        assert torch.isfinite(aux["loss_all"])
+    assert (trainer.hits, trainer.misses) == (2, 2) and len(trainer.cache) == 2
+    for g in trainer.cache.store.values():
+        assert all(x.is_cuda and not x.requires_grad for x in g)

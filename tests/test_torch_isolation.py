@@ -33,6 +33,7 @@ def test_walk_sees_the_package():
     assert len(FILES) > 20
     names = {str(p.relative_to(ROOT)) for p in FILES}
     for sub in ("evaluation/harness.py", "evaluation/metrics.py", "geometry/alignment.py",
-                "training/loop.py", "training/checkpoint.py", "scripts/train_ggrt.py", "scripts/eval_ggrt.py"):
+                "training/loop.py", "training/checkpoint.py", "scripts/train_ggrt.py", "scripts/eval_ggrt.py",
+                "training/gaussian_cache.py", "training/trainer_cached.py", "scripts/finetune_ggrt.py"):
         assert f"ggrt_official_torch/{sub}" in names, sub
     assert "jax" in imported_roots(ROOT / "ggrt_official_tpu" / "ops" / "rasterizer" / "api.py")

@@ -225,3 +225,23 @@ def test_wrapper_rejects_bad_shapes():
     with pytest.raises(ValueError):
         tcc.composite_fwd.launch(torch.zeros(2, 8, 128), torch.zeros(2, 4, 128),
                                  torch.zeros(2, dtype=torch.int32), 64, 64)
+
+
+def test_constants_made_in_inference_mode_serve_autograd():
+    """The render path takes its constants from constants.device_constant,
+    made on the first call. A first render under torch.inference_mode() (a
+    served request) must not leave inference tensors there: a later render
+    with gradients (a train step) saves them for backward. The images of
+    the two calls are equal, bit for bit."""
+    from ggrt_official_torch.constants import device_constant
+
+    sc = {k: torch.tensor(v, dtype=torch.float32) for k, v in make_scene().items()}
+    args = [sc[k] for k in ("extrinsics", "intrinsics", "near", "far")]
+    leaves = [sc[k] for k in ("background", "means", "covariances", "sh_coeffs", "opacities")]
+    device_constant.cache_clear()
+    with torch.inference_mode():
+        served = tapi.render(*args, SHAPE, *leaves)
+    means = leaves[1].clone().requires_grad_(True)
+    img = tapi.render(*args, SHAPE, leaves[0], means, *leaves[2:])
+    img.square().mean().backward()
+    assert torch.equal(img.detach(), served) and torch.isfinite(means.grad).all()
