@@ -32,7 +32,9 @@ Phases; each one that fails stops the run with a non-zero exit:
              as the loss body says: the forward twice (rgb, depth); in
              'joint' and 'nerf_only' the rgb loss is back-propagated, so the
              backward and the scatter once; in 'pose_only' the loss is the
-             SfM term alone and neither runs.
+             SfM term alone and neither runs. Then one more 'joint' step
+             under torch's sync debug mode ("warn"): the host syncs it
+             still makes, each with its file:line.
   6. raster: the rasterizer's own entry point as bench.py drives it, at
              its two scales: 320x448 with 860,160 Gaussians and 640x960
              with 3,686,400 (3 per pixel x 2 pairs, SH degree 4, drawn from
@@ -112,6 +114,34 @@ Phases; each one that fails stops the run with a non-zero exit:
              of both must launch (2, 1, 1, 0). Prints ms per step off and
              on, the hits and misses of the timed pass, and the cache's
              entries and bytes.
+ 13. flagship: the flagship script (scripts/run_flagship.py) in-process at
+             its own configuration (tiny_config(), 128x192, 4 source views)
+             with cut step counts (nerf 20, pose 12 of which 4 warm, 20
+             target steps per start, ceiling 8, one view per arm, cache A/B
+             over 4 views, 2 scenes; the refined arms at 400 Adam steps per
+             start), into a temporary directory, then the same command
+             again. Every arm's psnr, ssim and *_unaligned errors must be
+             finite, every pose target's R error finite, the bar computed,
+             EVAL_FLAGSHIP.json strict JSON with the JAX artifact's keys
+             (args.device for args.platform), the cache arm must hit, the
+             second run must train no step and carry the cache A/B over, and
+             (fwd, bwd, scatter) must each launch. Then, outside the
+             counted runs, the compositor kernels and the scatter against
+             their plain versions (phase 3's tolerances) on the records and
+             record ids of the first run's first train step (32 tiles,
+             so effective_max_per_tile raises the config's K of 128 to
+             4096). Prints ms per step of each stage, the pose targets'
+             seconds, each arm's seconds and the cache A/B's ms per step.
+ 14. llff:   an LLFF-format scene (20 views of a synthetic scene as PNG at
+             378x504, the images_8 size of a 4032x3024 capture, with
+             poses_bounds.npy) in a temporary nerf_llff_data/; train_ggrt at
+             pretrain_config() width on it (5 source views resized to
+             320x448, 3 steps), eval_ggrt on its checkpoint (test mode, one
+             view) and finetune_ggrt from it for one step, none with
+             --synthetic. Losses must be finite, each train step must
+             launch (2, 1, 1, 0) and the finetune step (5, 4, 4, 0). Prints
+             the host ms of LLFFTestDataset.__getitem__ (6 images read,
+             blurred and resized) beside the train steps' ms.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or outside a checkout
 of the repository, it prints no result and exits non-zero.
@@ -961,6 +991,206 @@ def cache_phase(kernels, tag: str, device="cuda", cfg=None, image=IMAGE) -> dict
     return out
 
 
+def joint_step_syncs(trainer, example):
+    """The host syncs of one 'joint' train step, counted by file:line of
+    the Python frame that made each (torch's sync debug mode, "warn")."""
+    import collections
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            trainer.train_iteration(example, "joint")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return collections.Counter(
+        f"{Path(w.filename).relative_to(ROOT) if Path(w.filename).is_relative_to(ROOT) else w.filename}:{w.lineno}"
+        for w in caught if "called a synchronizing CUDA operation" in str(w.message))
+
+
+FLAGSHIP_ARGS = ["--nerf", "20", "--pose", "12", "--pose_warm", "4", "--selfdistill_steps", "20",
+                 "--ceiling", "8", "--eval_limit", "1", "--cache_ab", "4", "--scenes", "2"]
+
+
+def flagship_keys_differ(result: dict) -> set:
+    """The key paths in which a port artifact differs from the JAX
+    artifact EVAL_FLAGSHIP_r05.json (run_flagship.schema_differences)."""
+    from ggrt_official_torch.scripts.run_flagship import schema_differences
+
+    return schema_differences(result, json.loads((ROOT / "EVAL_FLAGSHIP_r05.json").read_text()))
+
+
+def flagship_phase(kernels, tag: str, device="cuda", argv=FLAGSHIP_ARGS, refine_steps: int = REFINE_STEPS) -> dict:
+    """Phase 13: the flagship script in-process at its own configuration
+    (tiny_config(), 128x192, 4 source views) with cut step counts, into a
+    temporary directory, then the same command again, which must resume
+    every stage. Returns both runs' results and timings, the first run's
+    launches and the artifact's strictness and key differences; the
+    caller checks them. The records, colours, list lengths and record ids
+    of the first train step's render are kept (copies, made without a
+    launch) for the caller to hold the kernels against their plain
+    versions at this configuration's shapes."""
+    import tempfile
+
+    import torch
+
+    from ggrt_official_torch.ops.rasterizer import cuda_composite as cc
+    from ggrt_official_torch.scripts import run_flagship
+
+    captured = {}
+    build = cc.build_records
+
+    def capture(pg, binning, tile_h=cc.TILE_H, tile_w=cc.TILE_W):
+        out = build(pg, binning, tile_h, tile_w)
+        if not captured and out[0].requires_grad:
+            captured.update(records=tuple(x.detach().clone() for x in out), tile=(tile_h, tile_w),
+                            ids=binning.gaussian_ids.detach().clone(), g=pg.mean2d.shape[0])
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        args = run_flagship.build_parser().parse_args([*argv, "--out", tmp, "--device", str(device)])
+        before = counts(*kernels)
+        t0 = time.perf_counter()
+        cc.build_records = capture
+        try:
+            result, timings = run_flagship.run(args, refine_steps)
+        finally:
+            cc.build_records = build
+        first_s = time.perf_counter() - t0
+        made = tuple(a - b for a, b in zip(counts(*kernels), before))
+
+        def refuse(name):
+            raise ValueError(f"non-strict constant {name}")
+
+        try:
+            artifact = json.loads((Path(tmp) / "EVAL_FLAGSHIP.json").read_text(), parse_constant=refuse)
+            strict = True
+        except ValueError:
+            artifact, strict = {}, False
+        t0 = time.perf_counter()
+        again, again_timings = run_flagship.run(args, refine_steps)
+        second_s = time.perf_counter() - t0
+    return dict(result=result, timings=timings, made=made, strict=strict, differ=flagship_keys_differ(artifact),
+                again=again, again_timings=again_timings, first_s=first_s, second_s=second_s,
+                captured=captured)
+
+
+def write_llff_scene(root: Path, scene: str, n_views: int = 20, image=(378, 504), seed: int = 50) -> None:
+    """An LLFF-format scene <root>/nerf_llff_data/<scene>/: a synthetic
+    scene's views as PNG in images_8/ (the size of a 4032x3024 capture at
+    factor 8) and poses_bounds.npy in LLFF's convention. load_llff_data
+    negates the pose's y and z columns and divides the focal length by the
+    factor; this writes the inverse, so the loaded cameras are the scene's
+    up to the world scale and recentering load_llff_data applies (a
+    similarity, which leaves the scene's geometry as it was)."""
+    import numpy as np
+    from PIL import Image
+
+    from ggrt_official_torch.data import datasets
+
+    ds = datasets.SyntheticPlanesDataset(datasets.SyntheticSceneSpec(n_views=n_views, image_size=image,
+                                                                     seed=seed))
+    img_dir = root / "nerf_llff_data" / scene / "images_8"
+    img_dir.mkdir(parents=True)
+    rows = []
+    h, w = image
+    for i, (rgb, c2w) in enumerate(zip(ds.images, ds.poses)):
+        Image.fromarray((np.clip(rgb, 0, 1) * 255 + 0.5).astype(np.uint8)).save(img_dir / f"{i:03d}.png")
+        pose = c2w[:3, :4].astype(np.float64).copy()
+        pose[:, 1:3] *= -1
+        hwf = np.array([h, w, float(ds.K[0, 0]) * 8])[:, None]
+        rows.append(np.concatenate([np.concatenate([pose, hwf], 1).ravel(), ds.depth_range]))
+    np.save(root / "nerf_llff_data" / scene / "poses_bounds.npy", np.stack(rows))
+
+
+def llff_phase(kernels, tag: str, device="cuda", tiny: bool = False, image=(378, 504)) -> dict:
+    """Phase 14: the three CLIs on an LLFF-format folder, no --synthetic:
+    train_ggrt at pretrain_config() width (5 source views, resized to
+    320x448) for 3 steps, eval_ggrt on its checkpoint (test mode, one
+    view) and finetune_ggrt from it for one step. Each trainer's steps are
+    counted and timed where they are taken; LLFFTestDataset.__getitem__
+    (the reads and the resize of 6 images) is timed on the host. Returns
+    the launches, losses and ms of each step, the eval summary and the
+    getitem ms; the caller checks them."""
+    import tempfile
+
+    import torch
+
+    from ggrt_official_torch.data.datasets import LLFFTestDataset
+    from ggrt_official_torch.scripts import eval_ggrt, finetune_ggrt, train_ggrt
+    from ggrt_official_torch.training import trainer as trainer_mod
+
+    steps = {"train": [], "finetune": []}
+
+    def counted(cls, name):
+        inner = cls.train_iteration
+
+        def run(self, batch, *a, **kw):
+            before = counts(*kernels)
+            t0 = time.perf_counter()
+            aux = inner(self, batch, *a, **kw)
+            if torch.device(device).type == "cuda":
+                torch.cuda.synchronize()
+            steps[name].append(dict(ms=(time.perf_counter() - t0) * 1e3, loss=float(aux["loss_all"]),
+                                    made=tuple(a - b for a, b in zip(counts(*kernels), before))))
+            return aux
+        return inner, run
+
+    tiny_flag = ["--tiny"] if tiny else []
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        write_llff_scene(root, "synth", image=image)
+        write_s = time.perf_counter() - t0
+        ds = LLFFTestDataset(str(root), "train", scenes=("synth",), num_source_views=5)
+        ds[0]
+        t0 = time.perf_counter()
+        n_get = 5
+        for i in range(n_get):
+            ex = ds[i]
+        getitem_ms = (time.perf_counter() - t0) / n_get * 1e3
+        shapes = (ex["rgb"].shape, ex["src_rgbs"].shape)
+
+        saved = {}
+        for cls, name in ((trainer_mod.GGRtTrainer, "train"), (trainer_mod.GGRtFinetuneTrainer, "finetune")):
+            saved[cls], wrapped = counted(cls, name)
+            cls.train_iteration = wrapped
+        try:
+            common = ["--rootdir", str(root), "--device", str(device)]
+            before = counts(*kernels)
+            train_ggrt.main([*common, "--scenes", "synth", "--n_iters", "3", "--out", str(root / "tr"), *tiny_flag])
+            ckpt = str(root / "tr" / "checkpoints" / "latest")
+            t0 = time.perf_counter()
+            summary = eval_ggrt.main([*common, "--scenes", "synth", "--ckpt", ckpt, "--limit", "1",
+                                      "--out", str(root / "ev"), *tiny_flag])
+            eval_s = time.perf_counter() - t0
+            eval_made = tuple(a - b for a, b in zip(counts(*kernels), before))
+            finetune_ggrt.main([*common, "--scene", "synth", "--ckpt", ckpt, "--n_iters", "4",
+                                "--out", str(root / "ft"), *tiny_flag])
+        finally:
+            for cls, fn in saved.items():
+                cls.train_iteration = fn
+    # The train steps' launches come before the eval's in `eval_made`.
+    train_made = tuple(sum(s["made"][i] for s in steps["train"]) for i in range(len(kernels)))
+    eval_made = tuple(a - b for a, b in zip(eval_made, train_made))
+    for name, xs in steps.items():
+        for i, st in enumerate(xs):
+            print(f"llff: {name} step {i}: loss_all {st['loss']!r}; launches (fwd, bwd, scatter, gather) "
+                  f"{st['made']}; {st['ms']!r} ms", flush=True)
+    print(f"llff: eval on one test view {eval_s!r} s (the view and time_render's 21 renders): psnr "
+          f"{summary['psnr']!r}, ssim {summary['ssim']!r}, R_error_mean_unaligned "
+          f"{summary['R_error_mean_unaligned']!r}; launches {eval_made}", flush=True)
+    print(f"llff: LLFFTestDataset.__getitem__ {getitem_ms!r} ms on the host (6 PNGs of {image[0]}x{image[1]} "
+          f"read, blurred and resized to 320x448; {n_get} calls), example shapes {shapes}; scene written in "
+          f"{write_s:.1f} s {tag}", flush=True)
+    return dict(steps=steps, summary=summary, eval_made=eval_made, getitem_ms=getitem_ms, shapes=shapes)
+
+
 def main() -> None:
     import torch
 
@@ -1161,6 +1391,11 @@ def main() -> None:
         del snap
     launches["train"] = counts(*kernels)
     train_peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    # The host syncs left in one 'joint' step, each with the line it comes
+    # from (not counted in the launches above).
+    syncs = joint_step_syncs(trainer, scenes[-2])
+    print(f"train: {sum(syncs.values())} host syncs in one 'joint' step: "
+          + ", ".join(f"{where} x{n}" for where, n in syncs.most_common()), flush=True)
     print("train: ok", flush=True)
 
     # 6. raster: the rasterizer's own entry point at bench.py's two scales.
@@ -1347,6 +1582,82 @@ def main() -> None:
           f"misses {ab['on']['misses']} {tag}", flush=True)
     print(f"timing: launches (fwd, bwd, scatter, gather): finetune {launches['finetune']}, cache "
           f"{launches['cache']}")
+    torch.cuda.empty_cache()
+
+    # 13. flagship: reset the counts, drive the flagship twice, read the counts.
+    t0 = time.perf_counter()
+    reset(*kernels)
+    fl = flagship_phase(kernels, tag)
+    launches["flagship"] = counts(*kernels)
+    result, timings = fl["result"], fl["timings"]
+    arms = [k for k in result if k.startswith("heldout_")]
+    for name in arms:
+        arm = result[name]
+        bad = [k for k in ("psnr", "ssim", *(k for k in arm if k.endswith("_unaligned")))
+               if not (isinstance(arm.get(k), float) and math.isfinite(arm[k]))]
+        if "error" in arm or bad:
+            fail(f"flagship arm {name}: {arm.get('error', f'non-finite {bad}')}")
+    errs = result["pose_target_stats"]["per_view_R_err"]
+    if not (len(errs) == 18 and all(math.isfinite(x) for x in errs)):
+        fail(f"flagship: pose targets' R errors {errs}")
+    if "error" in result["bar"]:
+        fail(f"flagship: {result['bar']['error']}")
+    if not fl["strict"] or fl["differ"]:
+        fail(f"flagship: EVAL_FLAGSHIP.json strict {fl['strict']}, keys differing from the JAX artifact's "
+             f"{sorted(fl['differ'])}")
+    if not result["cache_ab"]["on"]["hits"] > 0:
+        fail(f"flagship: the cache arm did not hit {result['cache_ab']}")
+    resumed = {**fl["again_timings"]["stages"], "stage_ceiling": fl["again_timings"]["ceiling"]}
+    if any(st["steps"] for st in resumed.values()) or not fl["again"]["cache_ab"].get("carried_from_previous_run"):
+        fail(f"flagship: the second run trained {resumed} or did not carry the cache A/B over")
+    if not all(fl["made"][:3]):
+        fail(f"flagship: launches (fwd, bwd, scatter, gather) {fl['made']}")
+    stage_ms = {k: (v["s"] * 1e3 / v["steps"] if v["steps"] else None)
+                for k, v in {**timings["stages"], "stage_ceiling": timings["ceiling"]}.items()}
+    print(f"flagship: ms per step (host clock, the stage's checkpoint saves included) "
+          + ", ".join(f"{k} {v!r}" for k, v in stage_ms.items())
+          + f"; pose targets {timings['pose_targets_s']!r} s for 18 views x 2 starts x 20 steps; arms (s) "
+          + ", ".join(f"{k} {v!r}" for k, v in timings["arms_s"].items())
+          + f"; cache A/B ms per step off {result['cache_ab']['off']['step_ms']!r}, on "
+          f"{result['cache_ab']['on']['step_ms']!r} (hits {result['cache_ab']['on']['hits']}, misses "
+          f"{result['cache_ab']['on']['misses']}); bar {json.dumps(result['bar'])}; first run "
+          f"{fl['first_s']:.1f} s, resumed run {fl['second_s']:.1f} s {tag}", flush=True)
+    # The kernels against their plain versions on a flagship train step's
+    # own records and record ids, after the counts are read.
+    cap = fl["captured"]
+    if not cap:
+        fail("flagship: no train step's render was captured")
+    rec, col, cnt = cap["records"]
+    print(f" flagship train-step records (tiny_config(), 128x192): t={rec.shape[0]} K={rec.shape[2]} from "
+          f"{cap['g']} Gaussians; list lengths min {int(cnt.min())} max {int(cnt.max())}")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    mx, mxb, _ = check_compositors(fwd, bwd, rec, col, cnt, cap["tile"], gen)
+    ids = torch.where(cap["ids"] >= 0, cap["ids"], cap["g"]).reshape(-1).to(torch.int32)
+    mxs = check_segment_sum(seg, ids, torch.randn(ids.shape[0], 9, generator=gen, device=dev), cap["g"])
+    for name, e in (("composite_fwd", mx), ("composite_bwd", mxb), ("segment_sum", mxs)):
+        err[name] = max(err[name], e)
+    del cap, rec, col, cnt, ids
+    print(f"flagship: ok in {time.perf_counter() - t0:.1f} s; launches (fwd, bwd, scatter, gather) "
+          f"{launches['flagship']}", flush=True)
+    torch.cuda.empty_cache()
+
+    # 14. llff: reset the counts, drive the three CLIs on an LLFF folder, read the counts.
+    t0 = time.perf_counter()
+    reset(*kernels)
+    ll = llff_phase(kernels, tag)
+    launches["llff"] = counts(*kernels)
+    for name, want in (("train", (2, 1, 1, 0)), ("finetune", (5, 4, 4, 0))):
+        xs = ll["steps"][name]
+        if len(xs) != {"train": 3, "finetune": 1}[name] or any(x["made"] != want for x in xs):
+            fail(f"llff {name}: steps {xs}, each must launch {want}")
+        if not all(math.isfinite(x["loss"]) for x in xs):
+            fail(f"llff {name}: a non-finite loss {xs}")
+    if not all(math.isfinite(ll["summary"][k]) for k in ("psnr", "ssim", "R_error_mean_unaligned")):
+        fail(f"llff eval: {ll['summary']}")
+    step_ms = [x["ms"] for x in ll["steps"]["train"]]
+    print(f"llff: ok in {time.perf_counter() - t0:.1f} s; LLFFTestDataset.__getitem__ {ll['getitem_ms']!r} ms "
+          f"on the host beside train steps of {', '.join(repr(x) for x in step_ms)} ms; launches "
+          f"{launches['llff']} {tag}", flush=True)
 
     sources = {
         "composite_fwd": ("ggrt_official_torch/csrc/composite_fwd.cu",
@@ -1374,7 +1685,8 @@ def main() -> None:
         })
     if not (launches["serve"][0] and all(launches["train"][:3]) and all(launches["raster"])
             and launches["eval"][0] and all(launches["loop"][:3]) and all(launches["finetune"][:3])
-            and all(launches["cache"][:3])):
+            and all(launches["cache"][:3]) and all(launches["flagship"][:3])
+            and all(launches["llff"][:3])):
         fail(f"a kernel of a path was not launched: {launches}")
     print(smi)
     print(json.dumps({"kernels": table}))

@@ -1,4 +1,6 @@
-"""Synthetic multi-view scenes in the dual batch format (host-side numpy).
+"""Datasets in the dual batch format (host-side numpy): LLFF-format scene
+folders (`LLFFTestDataset`, the reference's llff_test.py) and synthetic
+multi-view scenes.
 
 `SyntheticPlanesDataset` renders textured alpha planes at fixed depths by
 alpha compositing with exact pinhole geometry; each example carries both
@@ -6,52 +8,19 @@ the legacy IBRNet keys (rgb/camera/src_rgbs/src_cameras/depth_range) and
 the pixelSplat context/target dicts, as the reference's llff_test.py does.
 The same seed gives the same arrays as the JAX package's dataset.
 
-The Gaussian blur is written here in numpy with OpenCV's conventions
-(kernel from sigma, reflect-101 border), so the scene needs no OpenCV.
+Images are read with PIL and blurred and resized in numpy (`image_io`), so
+no reader needs OpenCV or imageio.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
 
+from .image_io import gaussian_blur, read_image
+from .llff import batch_parse_llff_poses, load_llff_data, loader_resize
 from .view_selection import get_nearest_pose_ids
-
-
-# OpenCV's fixed kernels for odd ksize <= 9 when sigma <= 0.
-_SMALL_GAUSSIAN_TAB = {
-    1: [1.0],
-    3: [0.25, 0.5, 0.25],
-    5: [0.0625, 0.25, 0.375, 0.25, 0.0625],
-    7: [0.03125, 0.109375, 0.21875, 0.28125, 0.21875, 0.109375, 0.03125],
-    9: [4 / 256, 13 / 256, 30 / 256, 51 / 256, 60 / 256, 51 / 256, 30 / 256, 13 / 256, 4 / 256],
-}
-
-
-def _gaussian_kernel(ksize: int, sigma: float) -> np.ndarray:
-    """cv2.getGaussianKernel for a float image: a fixed table for small
-    ksize when sigma <= 0, else exp(-x²/2σ²) normalized in float64 and
-    stored as float32 (sigma <= 0 derives σ from ksize)."""
-    if sigma <= 0 and ksize in _SMALL_GAUSSIAN_TAB:
-        return np.asarray(_SMALL_GAUSSIAN_TAB[ksize], np.float32)
-    if sigma <= 0:
-        sigma = 0.3 * ((ksize - 1) * 0.5 - 1) + 0.8
-    x = np.arange(ksize, dtype=np.float64) - (ksize - 1) / 2
-    k = np.exp(-(x * x) / (2.0 * sigma * sigma))
-    return (k / k.sum()).astype(np.float32)
-
-
-def gaussian_blur(image: np.ndarray, ksize: int, sigma: float = 0.0) -> np.ndarray:
-    """cv2.GaussianBlur(image, (ksize, ksize), sigma) for a 2-D float32
-    image; ksize 0 derives it from sigma as OpenCV does for float images."""
-    if ksize == 0:
-        ksize = int(np.rint(sigma * 8 + 1)) | 1
-    k = _gaussian_kernel(ksize, sigma).astype(np.float64)
-    r = ksize // 2
-    h, w = image.shape
-    padded = np.pad(image.astype(np.float64), r, mode="reflect")  # reflect-101
-    rows = sum(k[i] * padded[:, i:i + w] for i in range(ksize))
-    return sum(k[i] * rows[i:i + h] for i in range(ksize)).astype(np.float32)
 
 
 def pack_camera(img_size, intrinsics4, c2w) -> np.ndarray:
@@ -115,6 +84,107 @@ def make_example(
             "index": np.asarray([train_set_id], np.int64),
         },
     }
+
+
+class LLFFScenes:
+    """LLFF-format scene folders (poses_bounds.npy + images_N/) in the dual
+    batch format (ref llff_test.py:30-287): every llffhold-th view is held
+    out for test mode, the rest are the source pool; each example's sources
+    are the pool's views nearest to the target ("dist"), without the
+    target, read and resized to `image_size` with the loader's blur.
+
+    With `skip_unreadable` a folder that load_llff_data refuses is left out
+    (the multi-scene collections); else it raises."""
+
+    def __init__(self, scene_dirs, mode: str, num_source_views: int = 5, llffhold: int = 8,
+                 image_size=(320, 448), factor: int = 8, skip_unreadable: bool = False):
+        self.mode = mode
+        self.num_source_views = num_source_views
+        self.image_size = image_size
+
+        self.render_rgb_files = []
+        self.render_intrinsics = []
+        self.render_poses = []
+        self.render_train_set_ids = []
+        self.render_depth_range = []
+        self.train_intrinsics = []
+        self.train_poses = []
+        self.train_rgb_files = []
+
+        for scene_path in scene_dirs:
+            try:
+                _, poses, bds, _, _, rgb_files = load_llff_data(scene_path, factor=factor, load_imgs=False)
+            except (FileNotFoundError, ValueError):
+                if not skip_unreadable:
+                    raise
+                continue
+            near_depth, far_depth = np.min(bds), np.max(bds)
+            intrinsics, c2w_mats = batch_parse_llff_poses(poses)
+            ids = np.arange(poses.shape[0])
+            i_test = ids[::llffhold]
+            i_train = np.array([j for j in ids if j not in i_test])
+            i_render = i_train if mode == "train" else i_test
+
+            self.render_train_set_ids.extend([len(self.train_poses)] * len(i_render))
+            self.train_intrinsics.append(intrinsics[i_train])
+            self.train_poses.append(c2w_mats[i_train])
+            self.train_rgb_files.append(np.array(rgb_files)[i_train].tolist())
+            self.render_rgb_files.extend(np.array(rgb_files)[i_render].tolist())
+            self.render_intrinsics.extend(intrinsics[i_render])
+            self.render_poses.extend(c2w_mats[i_render])
+            self.render_depth_range.extend([[near_depth, far_depth]] * len(i_render))
+
+    def __len__(self):
+        return len(self.render_rgb_files)
+
+    def __getitem__(self, idx):
+        idx = idx % len(self.render_rgb_files)
+        rgb_file = self.render_rgb_files[idx]
+        rgb = read_image(rgb_file).astype(np.float32)[..., :3] / 255.0
+        render_pose = self.render_poses[idx]
+        intrinsics = self.render_intrinsics[idx]
+        depth_range_raw = self.render_depth_range[idx]
+
+        tsid = self.render_train_set_ids[idx]
+        train_rgb_files = self.train_rgb_files[tsid]
+        train_poses = self.train_poses[tsid]
+        train_intrinsics = self.train_intrinsics[tsid]
+
+        id_render = train_rgb_files.index(rgb_file) if rgb_file in train_rgb_files else -1
+        nearest_pose_ids = get_nearest_pose_ids(render_pose, train_poses, self.num_source_views,
+                                                tar_id=id_render, angular_dist_method="dist")
+
+        camera = pack_camera(rgb.shape[:2], intrinsics, render_pose)
+        src_rgbs, src_cameras, src_extr = [], [], []
+        for sid in nearest_pose_ids:
+            src_rgb = read_image(train_rgb_files[sid]).astype(np.float32)[..., :3] / 255.0
+            src_rgbs.append(src_rgb)
+            src_cameras.append(pack_camera(src_rgb.shape[:2], train_intrinsics[sid], train_poses[sid]))
+            src_extr.append(train_poses[sid])
+
+        rgb_r, camera_r, src_rgbs_r, src_cameras_r, intr3, src_intr3 = loader_resize(
+            rgb, camera, np.stack(src_rgbs), np.stack(src_cameras), size=self.image_size)
+        depth_range = (depth_range_raw[0] * 0.9, depth_range_raw[1] * 1.5)
+        return make_example(
+            rgb_r, camera_r, rgb_file, src_rgbs_r, src_cameras_r, depth_range,
+            np.stack(src_extr).astype(np.float32), render_pose[None].astype(np.float32),
+            src_intr3, intr3[None], nearest_pose_ids, tsid, self.image_size,
+        )
+
+
+class LLFFTestDataset(LLFFScenes):
+    """Per-scene LLFF dataset under <rootdir>/nerf_llff_data/ (ref
+    llff_test.py): `scenes` by name, all folders when empty."""
+
+    def __init__(self, rootdir: str, mode: str, scenes=(), num_source_views: int = 5, llffhold: int = 8,
+                 image_size=(320, 448), factor: int = 8):
+        self.folder_path = os.path.join(rootdir, "nerf_llff_data/")
+        if isinstance(scenes, str):
+            scenes = [scenes]
+        if not scenes:
+            scenes = sorted(os.listdir(self.folder_path))
+        super().__init__([os.path.join(self.folder_path, s) for s in scenes], mode, num_source_views,
+                         llffhold, image_size, factor)
 
 
 @dataclass
@@ -303,6 +373,7 @@ class SyntheticPlanesDataset:
         nearest = get_nearest_pose_ids(
             pose, train_poses, self.num_source_views,
             tar_id=int(np.where(self.i_train == idx)[0][0]) if idx in self.i_train else -1,
+            angular_dist_method="dist",
         )
         K4 = np.eye(4, dtype=np.float32)
         K4[:3, :3] = self.K

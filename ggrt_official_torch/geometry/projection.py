@@ -145,7 +145,9 @@ def intersect_rays(
     lhs = nx + ny
     rhs = torch.einsum("...ij,...j->...i", nx, ox) + torch.einsum("...ij,...j->...i", ny, oy)
     lhs = lhs + parallel.to(lhs.dtype)[..., None, None] * eye
-    solution = torch.linalg.solve(lhs, rhs[..., None])[..., 0]
+    # solve_ex without its error check: linalg.solve reads the factorisation's
+    # status back from the device, a host sync on every call.
+    solution = torch.linalg.solve_ex(lhs, rhs[..., None])[0][..., 0]
     return torch.where(parallel[..., None], torch.full_like(solution, inf), solution)
 
 

@@ -3,9 +3,10 @@
   * `BackboneResnet`, the pixelSplat context-image backbone: ResNet trunk
     with affine-free instance norm, per-stage 1x1 projections upsampled to
     full resolution and summed (reference backbone_resnet.py:28-100).
-  * `ResNetEncoder`, the IPO-Net feature/context net: a resnet18 trunk with
-    frozen batch norm to stride 16, upsampled and fused back to stride 8
-    or 4 (reference feature_network.py:274-381).
+  * `ResNetEncoder`, the IPO-Net feature/context net: a resnet18 trunk
+    (frozen batch norm by default; affine-free instance norm or 8-group
+    group norm on request) to stride 16, upsampled and fused back to stride
+    8 or 4 (reference feature_network.py:274-381).
 
 Module names follow the reference checkpoint keys (`model.conv1`,
 `model.layer{s}.{b}.conv{c}`, `model.layer{s}.{b}.downsample.0`,
@@ -68,6 +69,22 @@ class FrozenBatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         inv = torch.rsqrt(self.running_var + self.epsilon) * self.weight
         return x * inv[:, None, None] + (self.bias - self.running_mean * inv)[:, None, None]
+
+
+GROUP_NORM_EPS = 1e-6  # flax's GroupNorm default; torch's is 1e-5
+
+
+def make_norm(kind: str):
+    """The ResNetEncoder's norm factory, c -> module, as the JAX package's
+    make_norm: "batch" (frozen statistics), "instance" (affine-free, eps
+    1e-5 over H and W) or "group" (8 groups, affine, eps 1e-6)."""
+    if kind == "batch":
+        return FrozenBatchNorm
+    if kind == "instance":
+        return lambda c: InstanceNorm()
+    if kind == "group":
+        return lambda c: nn.GroupNorm(8, c, eps=GROUP_NORM_EPS)
+    raise ValueError(kind)
 
 
 class BasicBlock(nn.Module):
@@ -180,26 +197,29 @@ class BackboneResnet(nn.Module):
 
 
 class ResNetEncoder(nn.Module):
-    """IPO-Net feature/context encoder, resnet18 with frozen batch norm:
+    """IPO-Net feature/context encoder, resnet18 with the `norm` kind of
+    make_norm (frozen batch norm by default; its modules keep the
+    reference's names bn1, bn{c} and downsample.1 whatever the kind):
     conv1/s2 + norm + maxpool/s2 +
     layer1 + layer2/s2 + layer3/s2, then bilinear upsampling and conv fusion
     back to stride 8 (or 4), in the reference's order.
 
     Input (b, in_chs, h, w) -> (b, out_chs, h/stride, w/stride), NCHW."""
 
-    def __init__(self, in_chs: int = 3, out_chs: int = 128, stride: int = 8):
+    def __init__(self, in_chs: int = 3, out_chs: int = 128, stride: int = 8, norm: str = "batch"):
         super().__init__()
         if stride not in (4, 8):
             raise ValueError(f"stride {stride} unsupported")
         self.stride = stride
+        norm_fn = make_norm(norm)
         self.conv1 = _conv(in_chs, 64, 7, 2)
-        self.bn1 = FrozenBatchNorm(64)
+        self.bn1 = norm_fn(64)
         cin = 64
         for stage, (width, n, first_stride) in enumerate(
                 zip((64, 128, 256), RESNET_LAYERS["resnet18"][1][:3], (1, 2, 2)), start=1):
             blocks = []
             for i in range(n):
-                blocks.append(BasicBlock(cin, width, first_stride if i == 0 else 1, FrozenBatchNorm))
+                blocks.append(BasicBlock(cin, width, first_stride if i == 0 else 1, norm_fn))
                 cin = width
             self.add_module(f"layer{stage}", nn.Sequential(*blocks))
 

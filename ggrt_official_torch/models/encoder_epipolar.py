@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from ..config import EncoderCfg
+from ..constants import device_constant
 from ..geometry.projection import sample_image_grid
 from .backbone import BackboneResnet
 from .depth_predictor import DepthPredictorMonocular
@@ -135,7 +136,7 @@ class EncoderEpipolar(nn.Module):
         xy_ray, _ = sample_image_grid((h, w), device=images.device)
         xy_ray = xy_ray[y0:y0 + hc, x0:x0 + wc].reshape(-1, 2)
         offset_xy = torch.sigmoid(raw[..., :2])
-        pixel_size = torch.tensor([1.0 / w, 1.0 / h], device=images.device)
+        pixel_size = device_constant((1.0 / w, 1.0 / h), torch.float32, images.device)
         xy_ray = xy_ray[None, None, :, None, :] + (offset_xy - 0.5) * pixel_size
 
         gaussians = self.gaussian_adapter(

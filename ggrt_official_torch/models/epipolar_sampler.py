@@ -10,6 +10,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..constants import device_constant
 from ..geometry.epipolar import project_rays
 from ..geometry.projection import get_world_rays, sample_image_grid
 from ..ops.grid_sample import grid_sample
@@ -43,16 +44,21 @@ class EpipolarSampling(NamedTuple):
     directions: torch.Tensor      # (b, v, r, 3)
 
 
+def _index(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """An index array as a constant on `device`, made once per device."""
+    return device_constant(tuple(map(tuple, a.tolist())), torch.int64, device)
+
+
 def collect_other_views(x: torch.Tensor) -> torch.Tensor:
     """(b, v, ...) -> (b, v, v-1, ...): for each view, all other views."""
     _, index_other = generate_heterogeneous_index(x.shape[1])
-    return x[:, torch.as_tensor(index_other, device=x.device)]
+    return x[:, _index(index_other, x.device)]
 
 
 def transpose_other_views(x: torch.Tensor) -> torch.Tensor:
     """Swap 'view the ray came from' and 'view samples are drawn from'."""
     t_v, t_ov = generate_heterogeneous_index_transpose(x.shape[1])
-    return x[:, torch.as_tensor(t_v, device=x.device), torch.as_tensor(t_ov, device=x.device)]
+    return x[:, _index(t_v, x.device), _index(t_ov, x.device)]
 
 
 def generate_image_rays(

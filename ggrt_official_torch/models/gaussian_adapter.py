@@ -14,6 +14,7 @@ import torch
 from torch import nn
 
 from ..config import GaussianAdapterCfg
+from ..constants import device_constant
 from ..geometry.projection import get_world_rays, invert_intrinsics
 from ..ops.sh import rotate_sh
 
@@ -83,8 +84,7 @@ class GaussianAdapter(nn.Module):
 
         c = self.cfg
         scales = c.gaussian_scale_min + (c.gaussian_scale_max - c.gaussian_scale_min) * torch.sigmoid(scales)
-        pixel_size = torch.tensor([1.0 / w, 1.0 / h], dtype=raw_gaussians.dtype,
-                                  device=raw_gaussians.device)
+        pixel_size = device_constant((1.0 / w, 1.0 / h), raw_gaussians.dtype, raw_gaussians.device)
         multiplier = 0.1 * torch.einsum(
             "...ij,j->...i", invert_intrinsics(intrinsics)[..., :2, :2], pixel_size
         ).sum(dim=-1)

@@ -18,6 +18,8 @@ from typing import Callable, Optional
 import torch
 from torch import nn
 
+from ..constants import device_constant
+
 LAYER_NORM_EPS = 1e-6
 
 
@@ -31,7 +33,7 @@ class PositionalEncoding(nn.Module):
     def forward(self, samples: torch.Tensor) -> torch.Tensor:
         octaves = torch.arange(self.num_octaves, dtype=samples.dtype, device=samples.device)
         freqs = 2.0 * math.pi * 2.0**octaves  # (f,)
-        phases = torch.tensor([0.0, 0.5 * math.pi], dtype=samples.dtype, device=samples.device)
+        phases = device_constant((0.0, 0.5 * math.pi), samples.dtype, samples.device)
         # (..., d) -> (..., d, f, p) -> (..., d*f*p)
         angle = samples[..., None, None] * freqs[:, None] + phases[None, :]
         return torch.sin(angle).reshape(*samples.shape[:-1], -1)

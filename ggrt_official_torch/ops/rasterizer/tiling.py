@@ -42,10 +42,9 @@ def _floordiv(a: torch.Tensor, b) -> torch.Tensor:
     return torch.div(a, b, rounding_mode="floor")
 
 
-def _clip(x: torch.Tensor, lo, hi) -> torch.Tensor:
+def _clip(x: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
     """max(x, lo) then min(., hi): the order jnp.clip applies when lo > hi."""
-    return torch.minimum(torch.maximum(x, torch.as_tensor(lo, device=x.device)),
-                         torch.as_tensor(hi, device=x.device))
+    return torch.minimum(torch.maximum(x, lo), hi)
 
 
 def _qbits(num_tiles: int) -> int:

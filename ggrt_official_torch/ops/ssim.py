@@ -10,6 +10,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..constants import device_constant
+
 
 def _avg_pool3(x: torch.Tensor) -> torch.Tensor:
     """3x3 / stride-1 mean after reflection padding; (b, c, h, w)."""
@@ -41,7 +43,8 @@ def _gaussian_window(size: int, sigma: float) -> np.ndarray:
 def ssim_metric(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11) -> torch.Tensor:
     """Mean SSIM over an image pair (b, c, h, w)."""
     c = img1.shape[1]
-    window = torch.as_tensor(_gaussian_window(window_size, 1.5), dtype=img1.dtype).to(img1.device)
+    window = device_constant(tuple(map(tuple, _gaussian_window(window_size, 1.5).tolist())),
+                             img1.dtype, img1.device)
     kernel = window.expand(c, 1, window_size, window_size)
     pad = window_size // 2
 

@@ -3,11 +3,13 @@ package's scripts/eval_ggrt.py): per-view pose correction, Gaussian
 rendering, PSNR/SSIM and pose R/t errors, written to <out>/results.json.
 
 Usage:
+  python -m ggrt_official_torch.scripts.eval_ggrt --rootdir data/ibrnet/train --scenes fern \
+      --ckpt out/pretrain/checkpoints/latest
   python -m ggrt_official_torch.scripts.eval_ggrt --synthetic --ckpt out/smoke/checkpoints/latest
   python -m ggrt_official_torch.scripts.eval_ggrt --synthetic --tiny --limit 1 --device cpu
 
-Only the procedural scenes (--synthetic) are ported; the LLFF readers are
-ROADMAP Queue 6.
+Without --synthetic the test views are those LLFFTestDataset holds out
+(test mode) of the LLFF-format scenes under <rootdir>/nerf_llff_data/.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import json
 from pathlib import Path
 
 from ..config import pretrain_config, tiny_config
-from ..data.datasets import SyntheticPlanesDataset, SyntheticSceneSpec
+from ..data.datasets import LLFFTestDataset, SyntheticPlanesDataset, SyntheticSceneSpec
 from ..evaluation.harness import Evaluator
 from ..training.checkpoint import CheckPointManager
 from ..training.loop import restore_state
@@ -43,12 +45,14 @@ def main(argv=None):
 
     cfg = tiny_config() if args.tiny else pretrain_config()
     cfg.train.rootdir = args.rootdir
-    if not args.synthetic:
-        raise NotImplementedError("only --synthetic scenes are ported; the LLFF readers are ROADMAP Queue 6")
-    ds = SyntheticPlanesDataset(
-        SyntheticSceneSpec(n_views=12, image_size=(64, 96), seed=args.synthetic_seed),
-        mode="test", num_source_views=4,
-    )
+    if args.synthetic:
+        ds = SyntheticPlanesDataset(
+            SyntheticSceneSpec(n_views=12, image_size=(64, 96), seed=args.synthetic_seed),
+            mode="test", num_source_views=4,
+        )
+    else:
+        ds = LLFFTestDataset(cfg.train.rootdir, "test", scenes=tuple(args.scenes),
+                             num_source_views=cfg.train.num_source_views, llffhold=cfg.train.llffhold)
 
     trainer = GGRtTrainer(cfg, device=args.device)
     trainer.init_full()

@@ -2,12 +2,15 @@
 finetune_ggrt_stable.py; the JAX package's scripts/finetune_ggrt.py).
 
 Usage:
+  python -m ggrt_official_torch.scripts.finetune_ggrt --rootdir data/ibrnet/train --scene room \
+      --ckpt out/pretrain/checkpoints/latest
   python -m ggrt_official_torch.scripts.finetune_ggrt --synthetic --ckpt out/pretrain/checkpoints/latest
   python -m ggrt_official_torch.scripts.finetune_ggrt --synthetic --tiny --n_iters 2 --device cpu
 
 `--ckpt` resumes from a checkpoint of train_ggrt (weights, optimizers and
-step, as the JAX package's loop does). Only the procedural scenes
-(--synthetic) are ported; the LLFF readers are ROADMAP Queue 6.
+step, as the JAX package's loop does). Without --synthetic the examples
+come from the LLFF-format scene <rootdir>/nerf_llff_data/<scene>
+(LLFFTestDataset, train mode).
 """
 from __future__ import annotations
 
@@ -15,7 +18,7 @@ import argparse
 import itertools
 
 from ..config import finetune_config, tiny_config
-from ..data.datasets import SyntheticPlanesDataset, SyntheticSceneSpec, collate_batch
+from ..data.datasets import LLFFTestDataset, SyntheticPlanesDataset, SyntheticSceneSpec, collate_batch
 from ..training.loop import train_loop
 from ..training.trainer import GGRtFinetuneTrainer
 
@@ -42,9 +45,11 @@ def main(argv=None):
     cfg.train.ckpt_path = args.ckpt
     cfg.train.rootdir = args.rootdir
 
-    if not args.synthetic:
-        raise NotImplementedError("only --synthetic scenes are ported; the LLFF readers are ROADMAP Queue 6")
-    ds = SyntheticPlanesDataset(SyntheticSceneSpec(n_views=12, image_size=(64, 96)), num_source_views=4)
+    if args.synthetic:
+        ds = SyntheticPlanesDataset(SyntheticSceneSpec(n_views=12, image_size=(64, 96)), num_source_views=4)
+    else:
+        ds = LLFFTestDataset(cfg.train.rootdir, "train", scenes=(args.scene,),
+                             num_source_views=cfg.train.num_source_views, llffhold=cfg.train.llffhold)
 
     def batches():
         for i in itertools.count():

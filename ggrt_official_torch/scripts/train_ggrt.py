@@ -2,11 +2,14 @@
 train_ggrt_stable.py; the JAX package's scripts/train_ggrt.py).
 
 Usage:
+  python -m ggrt_official_torch.scripts.train_ggrt --rootdir data/ibrnet/train --scenes fern \
+      --n_iters 6000 --out out/pretrain
   python -m ggrt_official_torch.scripts.train_ggrt --synthetic --n_iters 50 --out out/smoke
   python -m ggrt_official_torch.scripts.train_ggrt --synthetic --tiny --n_iters 2 --device cpu
 
-Only the procedural scenes (--synthetic) are ported; the LLFF readers are
-ROADMAP Queue 6.
+Without --synthetic the examples come from LLFF-format scenes under
+<rootdir>/nerf_llff_data/ (LLFFTestDataset, train mode, every
+cfg.train.llffhold-th view held out).
 """
 from __future__ import annotations
 
@@ -14,7 +17,7 @@ import argparse
 import itertools
 
 from ..config import apply_overrides, pretrain_config, tiny_config
-from ..data.datasets import SyntheticPlanesDataset, SyntheticSceneSpec, collate_batch
+from ..data.datasets import LLFFTestDataset, SyntheticPlanesDataset, SyntheticSceneSpec, collate_batch
 from ..training.loop import train_loop
 from ..training.trainer import GGRtTrainer
 
@@ -48,13 +51,15 @@ def main(argv=None):
         cfg.train.machine = args.machine
     apply_overrides(cfg, dict(kv.split("=", 1) for kv in args.override))
 
-    if not args.synthetic:
-        raise NotImplementedError("only --synthetic scenes are ported; the LLFF readers are ROADMAP Queue 6")
-    scenes = [
-        SyntheticPlanesDataset(SyntheticSceneSpec(n_views=12, image_size=(64, 96), seed=s),
-                               num_source_views=min(cfg.train.num_source_views, 4))
-        for s in range(args.synthetic_scenes)
-    ]
+    if args.synthetic:
+        scenes = [
+            SyntheticPlanesDataset(SyntheticSceneSpec(n_views=12, image_size=(64, 96), seed=s),
+                                   num_source_views=min(cfg.train.num_source_views, 4))
+            for s in range(args.synthetic_scenes)
+        ]
+    else:
+        scenes = [LLFFTestDataset(cfg.train.rootdir, "train", scenes=tuple(args.scenes),
+                                  num_source_views=cfg.train.num_source_views, llffhold=cfg.train.llffhold)]
 
     def batches():
         for i in itertools.count():

@@ -33,6 +33,7 @@ from ..geometry.se3 import relative_to_source_c2w
 from ..losses.criterion import img2mse, masked_l2_image_loss, mse2psnr, self_sup_depth_loss, sup_depth_loss
 from ..models.ggrt import GGRtModel, compose_joint_loss
 from . import state as state_lib
+from .pretrained import load_pretrained_trunks
 from .state import TrainState
 
 
@@ -169,12 +170,13 @@ class GGRtTrainer:
 
     def init_full(self) -> TrainState:
         """Build the composite model (pose learner + Gaussian model) with
-        random weights from cfg.train.seed, and its optimizers. Unlike the
-        JAX package's, it needs no example batch."""
-        if self.cfg.encoder.backbone.pretrained_path or self.cfg.iponet.pretrained_path:
-            raise NotImplementedError("loading pretrained trunks is not ported yet")
+        random weights from cfg.train.seed, load the pretrained trunks the
+        config names (training/pretrained.py; a missing file leaves them
+        random, with a warning), and build its optimizers. Unlike the JAX
+        package's, it needs no example batch."""
         self.model = GGRtModel(self.cfg, device=self.device,
                                generator=torch.Generator().manual_seed(self.cfg.train.seed))
+        load_pretrained_trunks(self.model, self.cfg)
         self.state = TrainState(self.cfg, self.model)
         return self.state
 

@@ -17,6 +17,7 @@ convert.py's:
                                             the kernel, torch does
   flax LayerNorm scale/bias              -> torch weight/bias
   flax FrozenBatchNorm scale/bias/mean/var -> torch weight/bias/running_mean/running_var
+  flax GroupNorm scale/bias               -> torch weight/bias
 """
 from __future__ import annotations
 
@@ -126,35 +127,43 @@ def bn_map(torch_prefix: str, flax_path: tuple[str, ...]):
     ]
 
 
+# GroupNorm's weight/bias map as LayerNorm's (scale/bias).
+_NORM_MAPS = {"batch": (bn_map, "FrozenBatchNorm"), "group": (ln_map, "GroupNorm")}
+
+
 def trunk_block_map(stage, block, bottleneck=True, downsample=False,
                     torch_root="backbone.model", flax_root=("backbone", "trunk"),
-                    batch_norm=False):
+                    norm="instance"):
     """torchvision layer{stage}.{block} -> trunk layer{stage}_block{block}.
-    With instance norm the norms carry no parameters; with batch_norm (the
-    IPO-Net encoder) bn{c} and downsample.1 map onto FrozenBatchNorm_{i},
-    numbered in flax's creation order (Conv_0, FrozenBatchNorm_0, ...)."""
+    Instance norm carries no parameters; with batch or group norm (the
+    IPO-Net encoder) bn{c} and downsample.1 map onto FrozenBatchNorm_{i} or
+    GroupNorm_{i}, numbered in flax's creation order (Conv_0, ..._0, ...)."""
     t = f"{torch_root}.layer{stage}.{block}"
     f = (*flax_root, f"layer{stage}_block{block}")
     n_convs = 3 if bottleneck else 2
+    norm_map, flax_name = _NORM_MAPS.get(norm, (None, None))
     rows = []
     for c in range(1, n_convs + 1):
         rows += conv_map(f"{t}.conv{c}", (*f, f"Conv_{c-1}"), bias=False)
-        if batch_norm:
-            rows += bn_map(f"{t}.bn{c}", (*f, f"FrozenBatchNorm_{c-1}"))
+        if norm_map:
+            rows += norm_map(f"{t}.bn{c}", (*f, f"{flax_name}_{c-1}"))
     if downsample:
         rows += conv_map(f"{t}.downsample.0", (*f, f"Conv_{n_convs}"), bias=False)
-        if batch_norm:
-            rows += bn_map(f"{t}.downsample.1", (*f, f"FrozenBatchNorm_{n_convs}"))
+        if norm_map:
+            rows += norm_map(f"{t}.downsample.1", (*f, f"{flax_name}_{n_convs}"))
     return rows
 
 
-def resnet_encoder_name_map(model: str = "resnet18", stride: int = 8):
-    """The IPO-Net ResNetEncoder (frozen batch norm, basic blocks)."""
-    rows = conv_map("conv1", ("conv1",), bias=False) + bn_map("bn1", ("norm1",))
+def resnet_encoder_name_map(model: str = "resnet18", stride: int = 8, norm: str = "batch"):
+    """The IPO-Net ResNetEncoder (basic blocks) with the `norm` kind of
+    models/backbone.make_norm."""
+    rows = conv_map("conv1", ("conv1",), bias=False)
+    if norm in _NORM_MAPS:
+        rows += _NORM_MAPS[norm][0]("bn1", ("norm1",))
     for stage in (1, 2, 3):
         for b in range(_RESNET_BLOCKS[model][stage - 1]):
             rows += trunk_block_map(stage, b, bottleneck=False, downsample=(stage > 1 and b == 0),
-                                    torch_root="", flax_root=(), batch_norm=True)
+                                    torch_root="", flax_root=(), norm=norm)
     rows = [(k.lstrip("."), p, kind) for (k, p, kind) in rows]
     for name in ("upconv1", "upconv1_fusion") + (("upconv2", "upconv2_fusion") if stride == 4 else ()):
         rows += conv_map(f"{name}.0", (name,))

@@ -347,9 +347,18 @@ def test_finetune_cli(tmp_path):
     from a checkpoint that a pretrain trainer wrote (--ckpt: the pretrain ->
     finetune chain): it resumes, logs and saves step 2, and both parameter
     groups have moved from the pretrain weights. Without --synthetic it
-    refuses (the LLFF readers are ROADMAP Queue 6)."""
-    with pytest.raises(NotImplementedError, match="Queue 6"):
-        finetune_ggrt.main(["--device", "cpu", "--out", str(tmp_path / "none")])
+    reads the LLFF-format scene --scene under --rootdir: one step on a
+    16x32 scene the test writes (a crop tile's width must stay a multiple
+    of the epipolar transformer's downscale times its patch size); an
+    absent folder raises."""
+    from tests.test_torch_data import write_llff_scene
+
+    with pytest.raises(FileNotFoundError):
+        finetune_ggrt.main(["--device", "cpu", "--rootdir", str(tmp_path / "none"), "--out", str(tmp_path / "none")])
+    write_llff_scene(tmp_path / "llff" / "nerf_llff_data" / "room", hw=(16, 32))
+    finetune_ggrt.main(["--tiny", "--device", "cpu", "--rootdir", str(tmp_path / "llff"), "--scene", "room",
+                        "--n_iters", "1", "--out", str(tmp_path / "llff_ft")])
+    assert os.readlink(tmp_path / "llff_ft" / "checkpoints" / "latest") == "ckpt_00000001"
     pre = TTrainer(tcfg.tiny_config(), device="cpu")
     pre.init_full()
     pre_dir = str(tmp_path / "pre" / "checkpoints")

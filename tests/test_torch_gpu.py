@@ -495,6 +495,35 @@ def test_render_waits_for_nothing(cuda):
         grad_close(a, b)
 
 
+def test_request_waits_for_nothing(cuda):
+    """A whole request at pretrain_config() widths (the PixelSplat encoder:
+    backbone, epipolar sampler and transformer, depth predictor, Gaussian
+    adapter; then the decoder's rgb and depth renders) under
+    torch.inference_mode() queues all its work without a host sync after
+    one warm-up call, which makes the cached constants."""
+    from ggrt_official_torch.config import pretrain_config
+    from ggrt_official_torch.data import datasets
+    from ggrt_official_torch.data.shims import get_data_shim
+    from ggrt_official_torch.models.pixelsplat import PixelSplat
+    from ggrt_official_torch.training.trainer import prepare_batch
+
+    cfg = pretrain_config()
+    model = PixelSplat(cfg.encoder, cfg.decoder, device=cuda).eval()
+    ds = datasets.SyntheticPlanesDataset(datasets.SyntheticSceneSpec(n_views=8, image_size=(64, 96)),
+                                         num_source_views=cfg.train.num_source_views)
+    batch = prepare_batch(datasets.collate_batch(ds[0]), get_data_shim(cfg.encoder), cuda)
+    with torch.inference_mode():
+        first, _ = model(batch, 0, deterministic=True)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            again, _ = model(batch, 0, deterministic=True)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert again["rgb"].shape == (1, 1, 3, 64, 96) and again["depth"].shape == (1, 1, 64, 96)
+    image_close(again["rgb"], first["rgb"])
+
+
 def tiny_trainer(cls, cuda, **train):
     """A trainer of class `cls` at tiny_config() widths with `train`
     settings, built on the card."""

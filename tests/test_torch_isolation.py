@@ -34,6 +34,10 @@ def test_walk_sees_the_package():
     names = {str(p.relative_to(ROOT)) for p in FILES}
     for sub in ("evaluation/harness.py", "evaluation/metrics.py", "geometry/alignment.py",
                 "training/loop.py", "training/checkpoint.py", "scripts/train_ggrt.py", "scripts/eval_ggrt.py",
-                "training/gaussian_cache.py", "training/trainer_cached.py", "scripts/finetune_ggrt.py"):
+                "training/gaussian_cache.py", "training/trainer_cached.py", "scripts/finetune_ggrt.py",
+                "scripts/run_flagship.py", "training/pretrained.py", "data/image_io.py", "data/llff.py",
+                "data/collections.py", "data/mixing.py", "data/nerf_synthetic.py", "data/scannet.py",
+                "data/waymo.py", "data/extra_datasets.py", "data/registry.py", "data/colmap.py",
+                "data/verifier.py"):
         assert f"ggrt_official_torch/{sub}" in names, sub
     assert "jax" in imported_roots(ROOT / "ggrt_official_tpu" / "ops" / "rasterizer" / "api.py")

@@ -224,18 +224,28 @@ def test_model_only_load(tmp_path):
 def test_clis(tmp_path, monkeypatch, capsys):
     """train_ggrt and eval_ggrt in-process at --tiny widths on the CPU: the
     train run logs step 2 and saves it; the eval run loads that checkpoint
-    and writes results.json for one view. Without --synthetic both refuse
-    (the LLFF readers are ROADMAP Queue 6)."""
+    and writes results.json for one view. Without --synthetic both read
+    LLFF-format scenes under --rootdir: two steps and one view on a 16x24
+    scene the test writes; an absent folder raises."""
+    from tests.test_torch_data import write_llff_scene
+
+    time_render = tharness.Evaluator.time_render
+    monkeypatch.setattr(tharness.Evaluator, "time_render", lambda self, b, iters=20: time_render(self, b, iters=1))
     for main in (train_ggrt.main, eval_ggrt.main):
-        with pytest.raises(NotImplementedError, match="Queue 6"):
-            main(["--device", "cpu", "--out", str(tmp_path / "none")])
+        with pytest.raises(FileNotFoundError):
+            main(["--device", "cpu", "--rootdir", str(tmp_path / "none"), "--out", str(tmp_path / "none")])
+    write_llff_scene(tmp_path / "llff" / "nerf_llff_data" / "fern", hw=(16, 24))
+    llff = ["--tiny", "--device", "cpu", "--rootdir", str(tmp_path / "llff"), "--scenes", "fern"]
+    train_ggrt.main([*llff, "--n_iters", "2", "--out", str(tmp_path / "llff_train")])
+    assert [s for s, _ in records(str(tmp_path / "llff_train"))] == [2]
+    real = eval_ggrt.main([*llff, "--limit", "1", "--out", str(tmp_path / "llff_eval"),
+                           "--ckpt", str(tmp_path / "llff_train" / "checkpoints" / "latest")])
+    assert real["n_views"] == 1 and np.isfinite(real["psnr"])
     train_out = tmp_path / "train"
     train_ggrt.main(["--synthetic", "--tiny", "--n_iters", "2", "--device", "cpu", "--out", str(train_out)])
     assert [s for s, _ in records(str(train_out))] == [2]
     assert os.readlink(train_out / "checkpoints" / "latest") == "ckpt_00000002"
 
-    time_render = tharness.Evaluator.time_render
-    monkeypatch.setattr(tharness.Evaluator, "time_render", lambda self, b, iters=20: time_render(self, b, iters=1))
     eval_out = tmp_path / "eval"
     summary = eval_ggrt.main(["--synthetic", "--tiny", "--limit", "1", "--device", "cpu", "--out", str(eval_out),
                               "--ckpt", str(train_out / "checkpoints" / "latest")])

@@ -27,6 +27,18 @@ from tests.test_torch_rasterizer import K, SHAPE, make_scene
 ARGS = ("means", "covariances", "sh_coeffs", "opacities", "extrinsics", "intrinsics", "near", "far")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for this file's torch work, whatever worker and
+    order it runs in: a reduction that torch splits across threads sums in
+    an order that depends on the thread count, and two test files set the
+    count at import."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def close_to_scale(actual, expected, rtol=1e-4, name=""):
     """|actual - expected| <= rtol·max|expected| everywhere: the same float32
     formulas, with the cumprod and the suffix sums taken in another order
