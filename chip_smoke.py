@@ -34,7 +34,8 @@ Phases; each one that fails stops the run with a non-zero exit:
              backward and the scatter once; in 'pose_only' the loss is the
              SfM term alone and neither runs. Then one more 'joint' step
              under torch's sync debug mode ("warn"): the host syncs it
-             still makes, each with its file:line.
+             still makes, each with its file:line; none may come from the
+             batch's copies to the card (training/trainer.py::_to_device).
   6. raster: the rasterizer's own entry point as bench.py drives it, at
              its two scales: 320x448 with 860,160 Gaussians and 640x960
              with 3,686,400 (3 per pixel x 2 pairs, SH degree 4, drawn from
@@ -142,6 +143,22 @@ Phases; each one that fails stops the run with a non-zero exit:
              launch (2, 1, 1, 0) and the finetune step (5, 4, 4, 0). Prints
              the host ms of LLFFTestDataset.__getitem__ (6 images read,
              blurred and resized) beside the train steps' ms.
+ 15. video, crop: on phase 14's folder and checkpoint, render_video at
+             pretrain_config() width (the first test view's 5 context
+             views encoded once, 30 frames decoded along the eased path
+             between the first and last context cameras, written as PNGs):
+             30 PNGs of 320x448, not constant, one forward launch a frame
+             and no other; then eval_crop on one test view (320x448 in 4
+             crops of 160x224): 2 forward launches a crop (rgb, depth), a
+             finite stitched PSNR. Then, outside the counts: the forward
+             compositor against its plain version on the first frame's
+             records (phase 3's tolerances); the LPIPS network (random
+             weights in the JAX package's npz format) on the card against
+             the CPU on 2 pairs of 320x448 (relative error < 1e-4), and
+             metrics.lpips with $GGRT_LPIPS_WEIGHTS; the g2o pose-accuracy
+             protocol on the scene's poses against a noisy copy. Prints the
+             encode ms and each frame's ms (CUDA events), frames/s, the
+             peak memory, ms per crop view and per crop, LPIPS ms.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or outside a checkout
 of the repository, it prints no result and exits non-zero.
@@ -1013,6 +1030,18 @@ def joint_step_syncs(trainer, example):
         for w in caught if "called a synchronizing CUDA operation" in str(w.message))
 
 
+def to_device_lines() -> set:
+    """"file:line" of every line of training/trainer.py::_to_device, as
+    joint_step_syncs names them."""
+    import inspect
+
+    from ggrt_official_torch.training import trainer
+
+    lines, first = inspect.getsourcelines(trainer._to_device)
+    path = Path(trainer.__file__).resolve().relative_to(ROOT)
+    return {f"{path}:{n}" for n in range(first, first + len(lines))}
+
+
 FLAGSHIP_ARGS = ["--nerf", "20", "--pose", "12", "--pose_warm", "4", "--selfdistill_steps", "20",
                  "--ceiling", "8", "--eval_limit", "1", "--cache_ab", "4", "--scenes", "2"]
 
@@ -1108,17 +1137,17 @@ def write_llff_scene(root: Path, scene: str, n_views: int = 20, image=(378, 504)
     np.save(root / "nerf_llff_data" / scene / "poses_bounds.npy", np.stack(rows))
 
 
-def llff_phase(kernels, tag: str, device="cuda", tiny: bool = False, image=(378, 504)) -> dict:
+def llff_phase(kernels, tag: str, root: Path, device="cuda", tiny: bool = False, image=(378, 504)) -> dict:
     """Phase 14: the three CLIs on an LLFF-format folder, no --synthetic:
-    train_ggrt at pretrain_config() width (5 source views, resized to
-    320x448) for 3 steps, eval_ggrt on its checkpoint (test mode, one
-    view) and finetune_ggrt from it for one step. Each trainer's steps are
+    the scene "synth" is written into <root>/nerf_llff_data/; train_ggrt at
+    pretrain_config() width (5 source views, resized to 320x448) for 3
+    steps into <root>/tr, eval_ggrt on its checkpoint (test mode, one view)
+    and finetune_ggrt from it for one step. Each trainer's steps are
     counted and timed where they are taken; LLFFTestDataset.__getitem__
     (the reads and the resize of 6 images) is timed on the host. Returns
     the launches, losses and ms of each step, the eval summary and the
-    getitem ms; the caller checks them."""
-    import tempfile
-
+    getitem ms; the caller checks them. The scene and the train run's
+    checkpoint stay in `root` for phase 15."""
     import torch
 
     from ggrt_official_torch.data.datasets import LLFFTestDataset
@@ -1142,39 +1171,37 @@ def llff_phase(kernels, tag: str, device="cuda", tiny: bool = False, image=(378,
         return inner, run
 
     tiny_flag = ["--tiny"] if tiny else []
-    with tempfile.TemporaryDirectory() as tmp:
-        root = Path(tmp)
-        t0 = time.perf_counter()
-        write_llff_scene(root, "synth", image=image)
-        write_s = time.perf_counter() - t0
-        ds = LLFFTestDataset(str(root), "train", scenes=("synth",), num_source_views=5)
-        ds[0]
-        t0 = time.perf_counter()
-        n_get = 5
-        for i in range(n_get):
-            ex = ds[i]
-        getitem_ms = (time.perf_counter() - t0) / n_get * 1e3
-        shapes = (ex["rgb"].shape, ex["src_rgbs"].shape)
+    t0 = time.perf_counter()
+    write_llff_scene(root, "synth", image=image)
+    write_s = time.perf_counter() - t0
+    ds = LLFFTestDataset(str(root), "train", scenes=("synth",), num_source_views=5)
+    ds[0]
+    t0 = time.perf_counter()
+    n_get = 5
+    for i in range(n_get):
+        ex = ds[i]
+    getitem_ms = (time.perf_counter() - t0) / n_get * 1e3
+    shapes = (ex["rgb"].shape, ex["src_rgbs"].shape)
 
-        saved = {}
-        for cls, name in ((trainer_mod.GGRtTrainer, "train"), (trainer_mod.GGRtFinetuneTrainer, "finetune")):
-            saved[cls], wrapped = counted(cls, name)
-            cls.train_iteration = wrapped
-        try:
-            common = ["--rootdir", str(root), "--device", str(device)]
-            before = counts(*kernels)
-            train_ggrt.main([*common, "--scenes", "synth", "--n_iters", "3", "--out", str(root / "tr"), *tiny_flag])
-            ckpt = str(root / "tr" / "checkpoints" / "latest")
-            t0 = time.perf_counter()
-            summary = eval_ggrt.main([*common, "--scenes", "synth", "--ckpt", ckpt, "--limit", "1",
-                                      "--out", str(root / "ev"), *tiny_flag])
-            eval_s = time.perf_counter() - t0
-            eval_made = tuple(a - b for a, b in zip(counts(*kernels), before))
-            finetune_ggrt.main([*common, "--scene", "synth", "--ckpt", ckpt, "--n_iters", "4",
-                                "--out", str(root / "ft"), *tiny_flag])
-        finally:
-            for cls, fn in saved.items():
-                cls.train_iteration = fn
+    saved = {}
+    for cls, name in ((trainer_mod.GGRtTrainer, "train"), (trainer_mod.GGRtFinetuneTrainer, "finetune")):
+        saved[cls], wrapped = counted(cls, name)
+        cls.train_iteration = wrapped
+    try:
+        common = ["--rootdir", str(root), "--device", str(device)]
+        before = counts(*kernels)
+        train_ggrt.main([*common, "--scenes", "synth", "--n_iters", "3", "--out", str(root / "tr"), *tiny_flag])
+        ckpt = str(root / "tr" / "checkpoints" / "latest")
+        t0 = time.perf_counter()
+        summary = eval_ggrt.main([*common, "--scenes", "synth", "--ckpt", ckpt, "--limit", "1",
+                                  "--out", str(root / "ev"), *tiny_flag])
+        eval_s = time.perf_counter() - t0
+        eval_made = tuple(a - b for a, b in zip(counts(*kernels), before))
+        finetune_ggrt.main([*common, "--scene", "synth", "--ckpt", ckpt, "--n_iters", "4",
+                            "--out", str(root / "ft"), *tiny_flag])
+    finally:
+        for cls, fn in saved.items():
+            cls.train_iteration = fn
     # The train steps' launches come before the eval's in `eval_made`.
     train_made = tuple(sum(s["made"][i] for s in steps["train"]) for i in range(len(kernels)))
     eval_made = tuple(a - b for a, b in zip(eval_made, train_made))
@@ -1190,6 +1217,194 @@ def llff_phase(kernels, tag: str, device="cuda", tiny: bool = False, image=(378,
           f"{write_s:.1f} s {tag}", flush=True)
     return dict(steps=steps, summary=summary, eval_made=eval_made, getitem_ms=getitem_ms, shapes=shapes)
 
+
+
+def write_g2o_vertices(path: Path, c2w) -> None:
+    """A g2o file of VERTEX_SE3:QUAT lines (id, tx ty tz, qx qy qz qw) of the
+    world-to-camera poses of `c2w` (n, 4, 4), the quaternions from the
+    port's lie_group.R_to_quat (w first)."""
+    import torch
+
+    from ggrt_official_torch.geometry.lie_group import R_to_quat
+
+    w2c = torch.linalg.inv(torch.as_tensor(c2w, dtype=torch.float64))
+    q = R_to_quat(w2c[:, :3, :3])
+    path.write_text("".join(
+        f"VERTEX_SE3:QUAT {i} {t[0]!r} {t[1]!r} {t[2]!r} {qi[1]!r} {qi[2]!r} {qi[3]!r} {qi[0]!r}\n"
+        for i, (t, qi) in enumerate(zip(w2c[:, :3, 3].tolist(), q.tolist()))))
+
+
+def profile_frame(kept: dict, tag: str) -> None:
+    """One more video frame of render_video's model and batch (the context
+    encoded again, the frame at the first context camera) under
+    torch.profiler, after a warm-up frame: where a frame's device time goes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ggrt_official_torch.models.decoder_splatting import DecoderSplatting
+    from ggrt_official_torch.scripts.render_video import decode_frame
+
+    ctx, hw = kept["batch"]["context"], tuple(kept["batch"]["target"]["image"].shape[-2:])
+    decoder = DecoderSplatting(kept["cfg"].decoder)
+    with torch.inference_mode():
+        g = kept["model"].gaussian.encode_pairs(ctx, 0, deterministic=True)
+        frame = lambda: decode_frame(decoder, g, ctx["extrinsics"][0, 0], ctx["intrinsics"][0, 0],
+                                     ctx["near"][:, :1], ctx["far"][:, :1], hw)
+        frame()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
+            t0 = time.perf_counter()
+            frame()
+            torch.cuda.synchronize()
+    show_profile(prof, "one video frame (decode only)", (time.perf_counter() - t0) * 1e3, tag)
+
+
+def video_phase(kernels, tag: str, root: Path, device="cuda", n_frames: int = 30) -> dict:
+    """Phase 15: on phase 14's LLFF folder and checkpoint, render_video
+    (pretrain_config() width, the first test view's 5 context views, n_frames
+    frames as PNGs), then eval_crop (one test view of 320x448 in 160x224
+    crops), each counted and timed where it runs; then, outside the counts,
+    the LPIPS network on the card against the CPU and metrics.lpips with
+    $GGRT_LPIPS_WEIGHTS, and the g2o pose-accuracy protocol on the scene's
+    poses. The first frame's records (cuda_composite.build_records, kept as
+    copies made without a launch) are returned for the caller to hold the
+    forward kernel against its plain version. The caller checks the rest."""
+    import os
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from ggrt_official_torch.data.llff import load_llff_data
+    from ggrt_official_torch.evaluation import crop_eval, lpips, metrics, pose_accuracy
+    from ggrt_official_torch.ops.rasterizer import cuda_composite as cc
+    from ggrt_official_torch.scripts import eval_crop, render_video
+
+    dev = torch.device(device)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    common = ["--rootdir", str(root), "--device", str(device), "--ckpt", str(root / "tr" / "checkpoints" / "latest")]
+    crop = (160, 224)
+    out = {}
+
+    # render_video: launches and the host wall of render_frames (encode, the
+    # frames, the one copy back), the frame times by CUDA events.
+    captured, kept, build, render_frames = {}, {}, cc.build_records, render_video.render_frames
+
+    def capture(pg, binning, tile_h=cc.TILE_H, tile_w=cc.TILE_W):
+        rec = build(pg, binning, tile_h, tile_w)
+        if not captured:
+            captured.update(records=tuple(x.clone() for x in rec), tile=(tile_h, tile_w))
+        return rec
+
+    def timed_frames(model, cfg, batch, *a, **kw):
+        sync()
+        t0 = time.perf_counter()
+        frames = render_frames(model, cfg, batch, *a, **kw)
+        out["frames_wall_ms"] = (time.perf_counter() - t0) * 1e3
+        kept.update(model=model, cfg=cfg, batch=batch)
+        return frames
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    before = counts(*kernels)
+    cc.build_records, render_video.render_frames = capture, timed_frames
+    try:
+        res = render_video.main([*common, "--scene", "synth", "--n_frames", str(n_frames),
+                                 "--out", str(root / "video.mp4")])
+    finally:
+        cc.build_records, render_video.render_frames = build, render_frames
+    out["video_made"] = tuple(a - b for a, b in zip(counts(*kernels), before))
+    out["video_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else float("nan")
+    out["encode_ms"], out["frame_ms"] = res["encode_ms"], res["frame_ms"]
+    pngs = sorted(res["folder"].glob("*.png"))
+    imgs = [np.asarray(Image.open(p)) for p in pngs]
+    out["pngs"] = [p.name for p in pngs]
+    out["png_ok"] = all(im.shape == (320, 448, 3) and im.dtype == np.uint8 and im.std() > 0 for im in imgs)
+    out["frames_differ"] = len(imgs) > 1 and not np.array_equal(imgs[0], imgs[-1])
+    out["captured"] = captured
+    later = sorted(res["frame_ms"][1:])
+    print(f"video: {n_frames} frames at 320x448 from 4 context pairs; encode {res['encode_ms']!r} ms (CUDA "
+          f"events); ms per frame after the first: median {later[len(later) // 2]!r}, min {later[0]!r}, max "
+          f"{later[-1]!r} (first {res['frame_ms'][0]!r}); {1e3 / later[len(later) // 2]!r} frames/s decode-only; "
+          f"render_frames wall {out['frames_wall_ms']!r} ms ({n_frames * 1e3 / out['frames_wall_ms']!r} frames/s "
+          f"with the encode and the copy back); launches {out['video_made']}; peak {out['video_peak_gib']:.2f} "
+          f"GiB {tag}", flush=True)
+    if dev.type == "cuda":
+        profile_frame(kept, tag)
+    kept.clear()
+
+    # eval_crop: each view timed on the host clock (its crops end in a copy
+    # to the host), launches counted.
+    view_ms, eval_crop_view = [], crop_eval.eval_crop_view
+
+    def timed_view(*a, **kw):
+        sync()
+        t0 = time.perf_counter()
+        r = eval_crop_view(*a, **kw)
+        view_ms.append((time.perf_counter() - t0) * 1e3)
+        return r
+
+    before = counts(*kernels)
+    crop_eval.eval_crop_view = timed_view
+    try:
+        summary = eval_crop.main([*common, "--scenes", "synth", "--limit", "1", "--crop-h", str(crop[0]),
+                                  "--crop-w", str(crop[1]), "--out", str(root / "ec")])
+    finally:
+        crop_eval.eval_crop_view = eval_crop_view
+    out["crop_made"] = tuple(a - b for a, b in zip(counts(*kernels), before))
+    out["n_crops"] = len(crop_eval.crop_centers(320, 448, *crop))
+    out["crop_summary"], out["view_ms"] = summary, view_ms
+    out["stitched_shape"] = np.load(root / "ec" / "stitched_000.npy").shape
+    print(f"crop: {summary['n_views']} view of 320x448 in {out['n_crops']} crops of {crop[0]}x{crop[1]}: "
+          f"{view_ms[0]!r} ms per view, {view_ms[0] / out['n_crops']!r} ms per crop (host clock, the copy "
+          f"back included); stitched PSNR {summary['psnr_mean']!r}; launches {out['crop_made']} {tag}",
+          flush=True)
+
+    # LPIPS: random weights in JAX's npz format; the card against the CPU.
+    gen = torch.Generator().manual_seed(15)
+    net = lpips.LPIPS()
+    with torch.no_grad():
+        for i in range(5):
+            getattr(net, f"lin{i}").model[1].weight.uniform_(-0.05, 0.1, generator=gen)
+    sd = {k: v.numpy() for k, v in net.state_dict().items()}
+    npz = root / "lpips_alex.npz"
+    lpips.save_weights(str(npz), sd, sd)
+    cpu_net = lpips.load_npz(lpips.LPIPS(), str(npz)).eval()
+    card_net = lpips.load_npz(lpips.LPIPS(), str(npz)).to(dev).eval()
+    a, b = (torch.rand(2, 3, 320, 448, generator=gen) * 2 - 1 for _ in range(2))
+    with torch.no_grad():
+        want = cpu_net(a, b)
+        ad, bd = a.to(dev), b.to(dev)
+        got = card_net(ad, bd).cpu()
+        out["lpips_ms"] = cuda_ms(lambda: card_net(ad, bd), 10) if dev.type == "cuda" else float("nan")
+    out["lpips_err"] = float((got - want).abs().max())
+    out["lpips_rel"] = float(((got - want).abs() / want.abs()).max())
+    old = os.environ.get("GGRT_LPIPS_WEIGHTS")
+    os.environ["GGRT_LPIPS_WEIGHTS"] = str(npz)
+    try:
+        out["lpips_metric"] = metrics.lpips(((ad[0] + 1) / 2), ((bd[0] + 1) / 2))
+    finally:
+        if old is None:
+            del os.environ["GGRT_LPIPS_WEIGHTS"]
+        else:
+            os.environ["GGRT_LPIPS_WEIGHTS"] = old
+    print(f"lpips: card against CPU on 2 pairs of 320x448: {got.tolist()} against {want.tolist()}, max abs "
+          f"{out['lpips_err']!r}, max rel {out['lpips_rel']!r}; {out['lpips_ms']!r} ms per call of 2 pairs "
+          f"(CUDA events); metrics.lpips with GGRT_LPIPS_WEIGHTS {out['lpips_metric']!r} {tag}", flush=True)
+
+    # Pose accuracy on the scene's poses (the host), one file with noise.
+    _, poses, _, _, _, _ = load_llff_data(str(root / "nerf_llff_data" / "synth"), factor=8)
+    c2w = np.tile(np.eye(4), (poses.shape[0], 1, 1))
+    c2w[:, :3, :4] = poses[:, :3, :4]
+    rng = np.random.RandomState(15)
+    noisy = c2w.copy()
+    noisy[:, :3, 3] += 0.01 * rng.normal(size=(len(c2w), 3))
+    write_g2o_vertices(root / "gt.g2o", c2w)
+    write_g2o_vertices(root / "pred.g2o", noisy)
+    out["pose_accuracy"] = pose_accuracy.evaluate_g2o_pose_accuracy(str(root / "pred.g2o"), str(root / "gt.g2o"))
+    print(f"pose accuracy (g2o, {len(c2w)} poses, centres moved by 0.01 s.d.): {json.dumps(out['pose_accuracy'])}",
+          flush=True)
+    return out
 
 def main() -> None:
     import torch
@@ -1396,6 +1611,9 @@ def main() -> None:
     syncs = joint_step_syncs(trainer, scenes[-2])
     print(f"train: {sum(syncs.values())} host syncs in one 'joint' step: "
           + ", ".join(f"{where} x{n}" for where, n in syncs.most_common()), flush=True)
+    copies = [where for where in syncs if where in to_device_lines()]
+    if copies:
+        fail(f"train: the batch's copies to the card wait for it: {copies}")
     print("train: ok", flush=True)
 
     # 6. raster: the rasterizer's own entry point at bench.py's two scales.
@@ -1642,9 +1860,14 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # 14. llff: reset the counts, drive the three CLIs on an LLFF folder, read the counts.
+    # The folder and the train run's checkpoint serve phase 15 too.
+    import tempfile
+
+    scene_tmp = tempfile.TemporaryDirectory()
+    scene_root = Path(scene_tmp.name)
     t0 = time.perf_counter()
     reset(*kernels)
-    ll = llff_phase(kernels, tag)
+    ll = llff_phase(kernels, tag, scene_root)
     launches["llff"] = counts(*kernels)
     for name, want in (("train", (2, 1, 1, 0)), ("finetune", (5, 4, 4, 0))):
         xs = ll["steps"][name]
@@ -1658,6 +1881,43 @@ def main() -> None:
     print(f"llff: ok in {time.perf_counter() - t0:.1f} s; LLFFTestDataset.__getitem__ {ll['getitem_ms']!r} ms "
           f"on the host beside train steps of {', '.join(repr(x) for x in step_ms)} ms; launches "
           f"{launches['llff']} {tag}", flush=True)
+    torch.cuda.empty_cache()
+
+    # 15. video and crop eval: reset the counts before each path, read them after.
+    t0 = time.perf_counter()
+    reset(*kernels)
+    vp = video_phase(kernels, tag, scene_root)
+    launches["video"] = vp["video_made"]
+    launches["crop"] = vp["crop_made"]
+    if vp["pngs"] != [f"{i:04d}.png" for i in range(30)] or not vp["png_ok"] or not vp["frames_differ"]:
+        fail(f"video: frames {vp['pngs']}, each 320x448x3 uint8 and not constant: {vp['png_ok']}, "
+             f"first and last differ: {vp['frames_differ']}")
+    if vp["video_made"] != (30, 0, 0, 0):
+        fail(f"video: launches (fwd, bwd, scatter, gather) {vp['video_made']}, not one forward a frame (30, 0, 0, 0)")
+    if not all(math.isfinite(x) and x > 0 for x in [vp["encode_ms"], *vp["frame_ms"]]):
+        fail(f"video: encode {vp['encode_ms']} ms, frames {vp['frame_ms']} ms")
+    if vp["crop_made"] != (2 * vp["n_crops"], 0, 0, 0):
+        fail(f"crop: launches {vp['crop_made']}, not 2 forwards (rgb, depth) for each of {vp['n_crops']} crops")
+    if vp["n_crops"] != 4 or vp["stitched_shape"] != (320, 448, 3) or not math.isfinite(vp["crop_summary"]["psnr_mean"]):
+        fail(f"crop: {vp['n_crops']} crops, stitched {vp['stitched_shape']}, summary {vp['crop_summary']}")
+    if not (vp["lpips_rel"] < 1e-4 and isinstance(vp["lpips_metric"], float) and math.isfinite(vp["lpips_metric"])):
+        fail(f"lpips: card against CPU max rel {vp['lpips_rel']} (must be < 1e-4), metric {vp['lpips_metric']}")
+    if not all(math.isfinite(v) for v in vp["pose_accuracy"].values()):
+        fail(f"pose accuracy: {vp['pose_accuracy']}")
+    # The forward kernel against its plain version on a video frame's own
+    # records, after the counts are read.
+    cap = vp["captured"]
+    if not cap:
+        fail("video: no frame's render was captured")
+    rec, col, cnt = cap["records"]
+    print(f" video frame records (pretrain_config(), 320x448): t={rec.shape[0]} K={rec.shape[2]}; list "
+          f"lengths min {int(cnt.min())} max {int(cnt.max())}")
+    mx, _, _ = check_compositors(fwd, bwd, rec, col, cnt, cap["tile"], torch.Generator(device=dev).manual_seed(15))
+    err["composite_fwd"] = max(err["composite_fwd"], mx)
+    del cap, rec, col, cnt, vp["captured"]
+    scene_tmp.cleanup()
+    print(f"video, crop: ok in {time.perf_counter() - t0:.1f} s; launches video {launches['video']}, crop "
+          f"{launches['crop']} {tag}", flush=True)
 
     sources = {
         "composite_fwd": ("ggrt_official_torch/csrc/composite_fwd.cu",
@@ -1686,7 +1946,7 @@ def main() -> None:
     if not (launches["serve"][0] and all(launches["train"][:3]) and all(launches["raster"])
             and launches["eval"][0] and all(launches["loop"][:3]) and all(launches["finetune"][:3])
             and all(launches["cache"][:3]) and all(launches["flagship"][:3])
-            and all(launches["llff"][:3])):
+            and all(launches["llff"][:3]) and launches["video"][0] and launches["crop"][0]):
         fail(f"a kernel of a path was not launched: {launches}")
     print(smi)
     print(json.dumps({"kernels": table}))

@@ -6,6 +6,8 @@ PIL and numpy alone:
 
   * `read_image`: imageio.v2.imread of a PNG or JPEG (PIL decodes both for
     imageio too); palette images are expanded to RGB(A) as imageio does.
+  * `read_gray`: cv2.imread(path, IMREAD_GRAYSCALE) of an 8-bit PNG or a
+    JPEG: libjpeg's own grey decode, libpng's fixed-point luma.
   * `gaussian_blur`: cv2.GaussianBlur with OpenCV's kernel from sigma (or
     its fixed small tables) and the reflect-101 border.
   * `resize(..., "linear")`: cv2.resize INTER_LINEAR on a float image:
@@ -36,6 +38,21 @@ def read_image(path: str) -> np.ndarray:
         if im.mode == "P":
             im = im.convert("RGBA" if "transparency" in im.info else "RGB")
         return np.asarray(im)
+
+
+def read_gray(path: str) -> np.ndarray:
+    """The image as (h, w) uint8 grey levels, as OpenCV's IMREAD_GRAYSCALE
+    gives them: a JPEG is decoded to grey by libjpeg (its Y channel); a
+    colour PNG is reduced with libpng's rgb_to_gray weights 0.299 and
+    0.587 in 15-bit fixed point, truncated; alpha is dropped."""
+    with Image.open(path) as im:
+        if im.format == "JPEG":
+            im.draft("L", im.size)
+        if im.mode == "L":
+            return np.asarray(im)
+        rgb = np.asarray(im.convert("RGB")).astype(np.uint32)
+    gray = (9797 * rgb[..., 0] + 19234 * rgb[..., 1] + 3737 * rgb[..., 2]) >> 15
+    return gray.astype(np.uint8)
 
 
 def _gaussian_kernel(ksize: int, sigma: float) -> np.ndarray:

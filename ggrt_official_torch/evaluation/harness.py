@@ -196,7 +196,7 @@ class Evaluator:
             "depth": None if ret["depth"] is None else ret["depth"][0, 0].cpu().numpy(),
             **{k: float(v) for k, v in pose_err.items()},
         }
-        lp = metrics.lpips(out["pred"], out["gt"])
+        lp = metrics.lpips(pred, gt_img)
         if lp is not None:
             out["lpips"] = lp
         return out

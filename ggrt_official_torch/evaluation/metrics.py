@@ -1,5 +1,5 @@
-"""Evaluation metrics: PSNR, SSIM and the ATE-aligned pose errors with
-their conditioning gate (the JAX package's evaluation/metrics.py; the
+"""Evaluation metrics: PSNR, SSIM, LPIPS (where weights are given) and the
+ATE-aligned pose errors with their conditioning gate (the JAX package's evaluation/metrics.py; the
 reference's utils_loc.py img2psnr, ssim_torch.py and the pose-error
 protocol of eval_ggrt.py:277-282).
 """
@@ -26,14 +26,17 @@ def ssim(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
 
 
 def lpips(pred, gt):
-    """LPIPS(alex) is not ported: None, and no number is reported from
-    random weights. Weights named by $GGRT_LPIPS_WEIGHTS are refused rather
-    than ignored (the network is ROADMAP Queue 8)."""
+    """LPIPS(alex) of (3, h, w) images in [0, 1] (tensors or arrays), with the
+    network of evaluation/lpips.py and the weights of the .npz that
+    $GGRT_LPIPS_WEIGHTS names, on the images' device (the CPU for arrays).
+    None without weights: no number is reported from random weights."""
     path = os.environ.get("GGRT_LPIPS_WEIGHTS")
-    if path and os.path.exists(path):
-        raise NotImplementedError(
-            f"GGRT_LPIPS_WEIGHTS={path}: the LPIPS network is not ported yet (ROADMAP Queue 8)")
-    return None
+    if not (path and os.path.exists(path)):
+        return None
+    from .lpips import lpips_fn
+
+    device = pred.device if isinstance(pred, torch.Tensor) else "cpu"
+    return lpips_fn(path, device)(pred, gt)
 
 
 def _spread(c2w: torch.Tensor) -> torch.Tensor:

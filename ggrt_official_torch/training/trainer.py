@@ -133,11 +133,23 @@ def make_pretrain_loss_fn(model: GGRtModel, cfg: GGRtConfig, machine_id: int = s
 
 
 def _to_device(tree, device):
+    """numpy arrays and tensors of a (nested) batch dict onto `device`, each
+    with its own dtype. To a CUDA device a host leaf is staged in pinned
+    memory and copied with non_blocking=True, so the copy waits for nothing
+    (a copy from pageable memory waits for the card); on the CPU an array
+    is wrapped as before."""
+    device = torch.device(device)
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
     if isinstance(tree, np.ndarray):
-        return torch.as_tensor(tree, device=device)
-    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
+        if device.type != "cuda":
+            return torch.as_tensor(tree, device=device)
+        tree = torch.from_numpy(np.require(tree, requirements=["C", "W"]))
+    if not isinstance(tree, torch.Tensor):
+        return tree
+    if device.type == "cuda" and tree.device.type == "cpu":
+        return tree.pin_memory().to(device, non_blocking=True)
+    return tree.to(device)
 
 
 def prepare_batch(batch: dict, data_shim, device) -> dict:

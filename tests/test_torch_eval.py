@@ -265,15 +265,23 @@ def test_flagship_scene_spec(kw):
 
 
 def test_lpips_is_refused_with_weights(tmp_path, monkeypatch):
-    """No LPIPS number without the network: None by default, and weights
-    named by GGRT_LPIPS_WEIGHTS are refused, not ignored."""
+    """No LPIPS number without the network's weights: None by default, as
+    JAX's metric; weights named by GGRT_LPIPS_WEIGHTS are used, not ignored,
+    so a file that is no weights file is refused with an error, and a valid
+    one (JAX's save_weights format) gives a float."""
+    from ggrt_official_tpu.evaluation import lpips_jax
+    from tests.test_torch_lpips import torch_state_dicts
+
     monkeypatch.delenv("GGRT_LPIPS_WEIGHTS", raising=False)
-    assert tmetrics.lpips(np.zeros((3, 4, 4)), np.zeros((3, 4, 4))) is None
+    assert tmetrics.lpips(np.zeros((3, 64, 64)), np.zeros((3, 64, 64))) is None
     f = tmp_path / "lpips.npz"
     f.write_bytes(b"")
     monkeypatch.setenv("GGRT_LPIPS_WEIGHTS", str(f))
-    with pytest.raises(NotImplementedError, match="Queue 8"):
-        tmetrics.lpips(np.zeros((3, 4, 4)), np.zeros((3, 4, 4)))
+    with pytest.raises((OSError, ValueError, EOFError)):
+        tmetrics.lpips(np.zeros((3, 64, 64)), np.zeros((3, 64, 64)))
+    lpips_jax.save_weights(str(f), *torch_state_dicts(3))
+    x = np.random.RandomState(0).uniform(size=(3, 64, 64)).astype(np.float32)
+    assert isinstance(tmetrics.lpips(x, 1.0 - x), float)
 
 
 # --- the Evaluator -----------------------------------------------------------------
@@ -567,3 +575,25 @@ def test_evaluate_dataset_results_json(eval_case, tmp_path, monkeypatch):
                 close(v, np.mean(vals), rtol=1e-12, err_msg=k)
     assert math.isnan(summary["R_error_mean"]) and res["summary"]["R_error_mean"] is None
     assert summary["rendered_empty"] is False
+
+
+def test_evaluator_reports_lpips_with_weights(eval_case, tmp_path, monkeypatch):
+    """With GGRT_LPIPS_WEIGHTS set, each view's row has lpips (the port's
+    network on the rendered and GT images' device), the value metrics.lpips
+    gives for the same images as arrays (rtol 1e-6), and the summary its
+    mean with no lpips_status, as JAX's harness.py:246-248, 291-297."""
+    from ggrt_official_tpu.evaluation import lpips_jax
+    from tests.test_torch_lpips import torch_state_dicts
+
+    path = tmp_path / "lpips.npz"
+    lpips_jax.save_weights(str(path), *torch_state_dicts(4))
+    monkeypatch.setenv("GGRT_LPIPS_WEIGHTS", str(path))
+    monkeypatch.setattr(tharness.Evaluator, "time_render", lambda self, b, iters=20: 1.0)
+    ev = port_evaluator(eval_case, override=False)
+    row = ev.evaluate_view(eval_case["ex"], use_pred_pose=False)
+    assert isinstance(row["lpips"], float) and row["lpips"] > 0
+    close(row["lpips"], tmetrics.lpips(row["pred"], row["gt"]), rtol=1e-6)
+    ds = tds.SyntheticPlanesDataset(tds.SyntheticSceneSpec(n_views=8, image_size=(32, 64)), mode="test",
+                                    num_source_views=3)
+    summary = ev.evaluate_dataset(ds, limit=1, use_pred_pose=False)
+    assert isinstance(summary["lpips"], float) and "lpips_status" not in summary

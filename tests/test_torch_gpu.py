@@ -598,3 +598,98 @@ def test_cached_step_keeps_detached_entries_on_card(cuda):
     assert (trainer.hits, trainer.misses) == (2, 2) and len(trainer.cache) == 2
     for g in trainer.cache.store.values():
         assert all(x.is_cuda and not x.requires_grad for x in g)
+
+
+def test_train_step_batch_waits_for_nothing(cuda):
+    """The loader batch's copies to the card wait for nothing: prepare_batch
+    and one 'joint' step under torch's sync debug mode ("warn") raise no
+    warning from training/trainer.py::_to_device (each numpy leaf is staged
+    in pinned memory and copied with non_blocking=True). The dtypes are the
+    loader's."""
+    import inspect
+    import warnings
+
+    from ggrt_official_torch.training import trainer as trainer_mod
+
+    lines, first = inspect.getsourcelines(trainer_mod._to_device)
+    span = range(first, first + len(lines))
+    trainer = tiny_trainer(trainer_mod.GGRtTrainer, cuda)
+    ex = tiny_example()
+    trainer.train_iteration(ex, "joint")          # warm-up: the cached constants
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            batch = trainer.prepare_batch(ex)
+            aux = trainer.train_iteration(ex, "joint")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [(w.filename, w.lineno) for w in caught if "synchronizing CUDA operation" in str(w.message)]
+    assert not [s for s in syncs if s[0] == trainer_mod.__file__ and s[1] in span], syncs
+    assert torch.isfinite(aux["loss_all"])
+    assert batch["rgb"].is_cuda and batch["rgb"].dtype == torch.float32
+    assert batch["context"]["image"].dtype == torch.float32
+
+
+def test_video_frame_waits_for_nothing(cuda):
+    """render_video's frame path after one warm-up frame: the trajectory and
+    one decode up to the uint8 frame on the card, under torch's sync debug
+    mode ("error"), at tiny_config() widths; one composite_fwd launch a
+    frame; the frame equals the warm-up's at the same camera."""
+    from ggrt_official_torch.config import tiny_config
+    from ggrt_official_torch.data.shims import get_data_shim
+    from ggrt_official_torch.models.decoder_splatting import DecoderSplatting
+    from ggrt_official_torch.models.pixelsplat import PixelSplat
+    from ggrt_official_torch.scripts.render_video import decode_frame
+    from ggrt_official_torch.training.trainer import prepare_batch
+    from ggrt_official_torch.utils.trajectories import cosine_ease, interpolate_extrinsics, interpolate_intrinsics
+
+    cfg = tiny_config()
+    model = PixelSplat(cfg.encoder, cfg.decoder, device=cuda).eval()
+    batch = prepare_batch(tiny_example(), get_data_shim(cfg.encoder), cuda)
+    ctx = batch["context"]
+    decoder = DecoderSplatting(cfg.decoder)
+
+    def frame():
+        t = cosine_ease(4, device=cuda)
+        extr = interpolate_extrinsics(ctx["extrinsics"][0, 0], ctx["extrinsics"][0, -1], t)
+        intr = interpolate_intrinsics(ctx["intrinsics"][0, 0], ctx["intrinsics"][0, -1], t)
+        return decode_frame(decoder, g, extr[1], intr[1], ctx["near"][:, :1], ctx["far"][:, :1], (32, 64))
+
+    with torch.inference_mode():
+        g = model.encode_pairs(ctx, 0, deterministic=True)
+        first = frame()
+        torch.cuda.synchronize()
+        launches = cuda_composite.composite_fwd.launches
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            again = frame()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert cuda_composite.composite_fwd.launches == launches + 1
+    assert again.dtype == torch.uint8 and again.shape == (32, 64, 3) and again.is_cuda
+    assert int((again.int() - first.int()).abs().max()) <= 1
+
+
+def test_lpips_on_card_matches_cpu(cuda):
+    """The LPIPS network on the card against the same network on the CPU
+    (random weights, two image pairs of 320x448 in [-1, 1]): rtol 1e-4, atol
+    1e-6 (cuDNN's float32 convolutions sum in another order; TF32 off)."""
+    from ggrt_official_torch.evaluation.lpips import LPIPS
+
+    torch.manual_seed(0)
+    cpu = LPIPS().eval()
+    with torch.no_grad():
+        for m in cpu.modules():
+            if isinstance(m, torch.nn.Conv2d) and m.kernel_size == (1, 1):
+                m.weight.uniform_(-0.05, 0.1)
+    card = LPIPS().to(cuda).eval()
+    card.load_state_dict(cpu.state_dict())
+    gen = torch.Generator().manual_seed(1)
+    a, b = (torch.rand(2, 3, 320, 448, generator=gen) * 2 - 1 for _ in range(2))
+    with torch.no_grad():
+        want = cpu(a, b)
+        got = card(a.to(cuda), b.to(cuda)).cpu()
+    assert got.shape == (2,) and (want > 0).all()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)

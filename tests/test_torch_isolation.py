@@ -38,6 +38,10 @@ def test_walk_sees_the_package():
                 "scripts/run_flagship.py", "training/pretrained.py", "data/image_io.py", "data/llff.py",
                 "data/collections.py", "data/mixing.py", "data/nerf_synthetic.py", "data/scannet.py",
                 "data/waymo.py", "data/extra_datasets.py", "data/registry.py", "data/colmap.py",
-                "data/verifier.py"):
+                "data/verifier.py", "utils/trajectories.py", "scripts/render_video.py",
+                "evaluation/crop_eval.py", "scripts/eval_crop.py", "evaluation/lpips.py",
+                "geometry/lie_group.py", "evaluation/pose_accuracy.py", "geometry/tracks.py",
+                "geometry/pose_init.py", "sfm/disambiguation.py", "sfm/retrieval.py", "sfm/two_view.py",
+                "sfm/pipeline.py", "scripts/extract_relative_poses.py"):
         assert f"ggrt_official_torch/{sub}" in names, sub
     assert "jax" in imported_roots(ROOT / "ggrt_official_tpu" / "ops" / "rasterizer" / "api.py")
