@@ -5,8 +5,9 @@
 Phases; each one that fails stops the run with a non-zero exit:
   1. card:   name and power limit from nvidia-smi; TF32 off in cuDNN and
              cuBLAS (the reference computes in float32).
-  2. build:  nvcc builds the four kernels from ggrt_official_torch/csrc/,
-             one process each, all at once.
+  2. build:  nvcc builds the seven kernels from ggrt_official_torch/csrc/,
+             one process for each of the five sources, all at once (the
+             three probe kernels share precision_probe.cu).
   3. kernels: each kernel against its plain PyTorch version. The forward
              and backward compositors on the records of a real full-width
              render (160 tiles of 8x128, K = 1024) and on a ragged case
@@ -159,6 +160,26 @@ Phases; each one that fails stops the run with a non-zero exit:
              protocol on the scene's poses against a noisy copy. Prints the
              encode ms and each frame's ms (CUDA events), frames/s, the
              peak memory, ms per crop view and per crop, LPIPS ms.
+ 16. legacy, probe: on phase 14's folder, eval_dbarf at JAX's default
+             configuration (IBRNetModel with 64 coarse feature channels, 64
+             inverse-uniform samples, chunks of 2048 rays, render_stride 2,
+             5 source views) on 2 test views: finite PSNR and SSIM; ms per
+             view (host clock), per chunk (CUDA events), peak memory. One
+             2048-ray chunk of render_rays on the card against the CPU with
+             the same weights and feature maps (max abs < 1e-3 in rgb, and
+             in depth < 1e-3 of the far plane). DBARFModel.correct_poses
+             at pretrain_config()'s IPO-Net width on the view, and a chunk
+             rendered with its relative poses: finite. BARFTrainer at NeRFMLP's published widths (depth
+             8, width 256, 10 and 4 bands, 64 samples, 1024 rays a step):
+             20 timed steps after a warm-up, the loss must fall and both
+             Adam groups move; then 50 test-time pose steps. One chunk and
+             one BARF step run under torch.profiler. Then the
+             precision probe (tools/diag_exp_precision.main): each of its
+             three kernels launched once in the counted run, none of the
+             rasterizer's four. Outside the counts each is held against its
+             plain version and float64 at CUDA's documented bounds (expf 2
+             ulp, logf 1 ulp, the division correctly rounded; kernel and
+             torch's op at most twice that apart) and timed beside its bound.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or outside a checkout
 of the repository, it prints no result and exits non-zero.
@@ -1406,6 +1427,259 @@ def video_phase(kernels, tag: str, root: Path, device="cuda", n_frames: int = 30
           flush=True)
     return out
 
+def profile_ms(fn, what: str, tag: str) -> float:
+    """One call of `fn` under torch.profiler after a warm-up call, shown by
+    show_profile; returns its device kernel time in ms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return show_profile(prof, what, wall_ms, tag)
+
+
+def barf_batch(n: int, seed: int):
+    """Camera-local rays and the colour where each hits the z = 2.5 plane
+    (the JAX package's BARF test scene), on the CPU: the field must place
+    the plane, so the camera pose is identifiable."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    d = torch.randn(n, 3, generator=gen) * torch.tensor([0.3, 0.3, 0.0]) + torch.tensor([0.0, 0.0, 1.0])
+    d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+    hit = 2.5 / d[:, 2:3] * d
+    rgb = 0.5 + 0.4 * torch.stack([torch.sin(2 * hit[:, 0]), torch.sin(2 * hit[:, 1]),
+                                   torch.cos(1.5 * hit[:, 0] + 1.5 * hit[:, 1])], -1)
+    return {"rays_o": torch.zeros(n, 3), "rays_d": d, "rgb": rgb.clamp(0, 1), "cam_idx": torch.tensor(1),
+            "base_c2w": torch.eye(4)}
+
+
+def legacy_phase(tag: str, root: Path, device="cuda", tiny: bool = False) -> dict:
+    """Phase 16's model paths: eval_dbarf on phase 14's LLFF folder (2 test
+    views), each view timed on the host clock and each render_rays chunk
+    by CUDA events; one chunk of render_rays on the card against the CPU
+    with the same weights and features; DBARFModel.correct_poses and a chunk
+    rendered with its relative poses; BARFTrainer steps and test-time pose
+    steps. `tiny` cuts every width for a rehearsal on the CPU. On the card
+    one chunk and one BARF step are profiled too (neither launches a kernel
+    of the port). Returns what the caller checks."""
+    import copy
+
+    import torch
+
+    from ggrt_official_torch import config
+    from ggrt_official_torch.geometry.se3 import se3_exp
+    from ggrt_official_torch.models.dbarf import DBARFModel
+    from ggrt_official_torch.rendering import volume
+    from ggrt_official_torch.rendering.rays import get_rays_single_image
+    from ggrt_official_torch.scripts import eval_dbarf
+    from ggrt_official_torch.training.barf_trainer import BARFTrainConfig, BARFTrainer
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    out = {}
+
+    # eval_dbarf: JAX's default configuration (or a cut one for a rehearsal).
+    view_ms, chunk_events, kept = [], [], {}
+    render_view, render_rays, build_model = eval_dbarf.render_view, volume.render_rays, eval_dbarf.build_model
+
+    def timed_view(model, ex, *a, **kw):
+        sync()
+        t0 = time.perf_counter()
+        pred, gt = render_view(model, ex, *a, **kw)
+        sync()
+        view_ms.append((time.perf_counter() - t0) * 1e3)
+        kept.setdefault("ex", ex)
+        return pred, gt
+
+    def timed_chunk(*a, **kw):
+        if not on_card:
+            return render_rays(*a, **kw)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        ret = render_rays(*a, **kw)
+        end.record()
+        chunk_events.append((start, end))
+        return ret
+
+    def keep_model(*a, **kw):
+        kept["model"] = build_model(*a, **kw)
+        return kept["model"]
+
+    cut = ["--n_samples", "8", "--render_stride", "8"] if tiny else []
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    eval_dbarf.render_view, volume.render_rays, eval_dbarf.build_model = timed_view, timed_chunk, keep_model
+    try:
+        t0 = time.perf_counter()
+        res = eval_dbarf.main(["--rootdir", str(root), "--scenes", "synth", "--limit", "2", "--device", str(device),
+                               "--out", str(root / "ed"), *cut])
+        out["eval_s"] = time.perf_counter() - t0
+    finally:
+        eval_dbarf.render_view, volume.render_rays, eval_dbarf.build_model = render_view, render_rays, build_model
+    out["eval"], out["view_ms"] = res, view_ms
+    out["chunk_ms"] = [s.elapsed_time(e) for s, e in chunk_events]
+    out["eval_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30 if on_card else float("nan")
+    n_samples = 8 if tiny else 64
+    per_view = len(out["chunk_ms"]) // max(len(view_ms), 1)
+    chunk_line = (f"ms per chunk of 2048 rays (CUDA events) median {sorted(out['chunk_ms'])[len(out['chunk_ms']) // 2]!r},"
+                  f" min {min(out['chunk_ms'])!r}, max {max(out['chunk_ms'])!r} ({per_view} a view)"
+                  if out["chunk_ms"] else "no chunk times (CPU)")
+    print(f"legacy: eval_dbarf on {len(view_ms)} LLFF test views of 320x448 (render_stride 2, {n_samples} samples, "
+          f"5 source views): ms per view (host clock) {', '.join(repr(x) for x in view_ms)}; {chunk_line}; peak "
+          f"{out['eval_peak_gib']:.2f} GiB; per view {json.dumps(res['per_view'])} {tag}", flush=True)
+
+    # One chunk of render_rays on the card against the CPU: the same
+    # weights, the same (card-made) feature maps, the same rays.
+    model, ex = kept["model"], kept["ex"]
+    cpu_model = copy.deepcopy(model).cpu()
+
+    def first_chunk(dev_, m, feats, rel_poses=None):
+        cam = torch.tensor(ex["camera"][0], device=dev_)
+        h, w = int(ex["camera"][0][0]), int(ex["camera"][0][1])
+        ro, rd = get_rays_single_image(h, w, cam[2:18].reshape(4, 4)[None], cam[18:34].reshape(4, 4)[None], 2)
+        batch = {"ray_o": ro[:2048], "ray_d": rd[:2048], "camera": cam,
+                 "depth_range": torch.tensor(ex["depth_range"][0], device=dev_),
+                 "src_rgbs": torch.tensor(ex["src_rgbs"][0], device=dev_),
+                 "src_cameras": torch.tensor(ex["src_cameras"][0], device=dev_)}
+        return volume.render_rays(batch, m.coarse, (feats, None), n_samples, det=True, inv_uniform=True,
+                                  rel_poses=rel_poses)["outputs_coarse"]
+
+    with torch.inference_mode():
+        feats = model.extract_features(torch.tensor(ex["src_rgbs"][0], device=dev))[0]
+        got = first_chunk(dev, model, feats)
+        t0 = time.perf_counter()
+        want = first_chunk(torch.device("cpu"), cpu_model, feats.cpu())
+        out["cpu_chunk_s"] = time.perf_counter() - t0
+    out["chunk_err"] = {k: float((got[k].cpu() - want[k]).abs().max()) for k in ("rgb", "depth")}
+    out["far"] = float(ex["depth_range"][0][1])
+    out["chunk_rgb_share"] = float(((got["rgb"].cpu() - want["rgb"]).abs() > 1e-3).double().mean())
+    print(f"legacy: one chunk of 2048 rays, card against CPU (same weights and features): max abs rgb "
+          f"{out['chunk_err']['rgb']!r}, depth {out['chunk_err']['depth']!r} (depth range "
+          f"{ex['depth_range'][0].tolist()}); share of rays with an rgb error > 1e-3: {out['chunk_rgb_share']!r}; "
+          f"the CPU took {out['cpu_chunk_s']:.1f} s", flush=True)
+    del cpu_model
+    if on_card:  # where a chunk's device time goes, after a warm-up chunk
+        with torch.inference_mode():
+            profile_ms(lambda: first_chunk(dev, model, feats), "one eval_dbarf chunk of 2048 rays", tag)
+
+    # DBARFModel.correct_poses at pretrain_config()'s IPO-Net width, then a
+    # chunk rendered with its relative poses.
+    cfg = config.tiny_config() if tiny else config.pretrain_config()
+    dbarf = DBARFModel(cfg, device=dev).eval()
+    with torch.inference_mode():
+        tgt = torch.tensor(ex["rgb"][0], device=dev).permute(2, 0, 1)[None]
+        refs = torch.tensor(ex["src_rgbs"][0], device=dev).permute(0, 3, 1, 2)
+        K = torch.tensor(ex["camera"][0][2:18], device=dev).reshape(4, 4)[:3, :3][None]
+        ref_K = torch.tensor(ex["src_cameras"][0][:, 2:18], device=dev).reshape(-1, 4, 4)[:, :3, :3]
+        near, far = (float(x) for x in ex["depth_range"][0])
+        dbarf.correct_poses(tgt, refs, K, ref_K, min_depth=near, max_depth=far)  # warm-up
+        sync()
+        t0 = time.perf_counter()
+        poses = dbarf.correct_poses(tgt, refs, K, ref_K, min_depth=near, max_depth=far)
+        sync()
+        out["pose_ms"] = (time.perf_counter() - t0) * 1e3
+        rel = poses.rel_poses[0, :, -1]
+        feats = dbarf.extract_features(torch.tensor(ex["src_rgbs"][0], device=dev))[0]
+        posed = first_chunk(dev, dbarf, feats, rel_poses=rel)
+    out["rel_poses"] = rel.cpu()
+    out["posed_finite"] = bool(torch.isfinite(posed["rgb"]).all() and torch.isfinite(posed["depth"]).all()
+                               and torch.isfinite(rel).all())
+    print(f"legacy: DBARFModel.correct_poses ({cfg.iponet.iters} GRU steps, {refs.shape[0]} reference views at "
+          f"{tgt.shape[-2]}x{tgt.shape[-1]}) {out['pose_ms']!r} ms (host clock, after a warm-up call); relative poses "
+          f"|max| {float(rel.abs().max())!r}; a chunk with them finite: {out['posed_finite']} {tag}", flush=True)
+    del dbarf, model, feats
+
+    # BARF at NeRFMLP's published widths (cut for a rehearsal).
+    widths = (dict(depth=4, width=32, num_freqs_xyz=4, n_samples=8) if tiny
+              else dict(depth=8, width=256, num_freqs_xyz=10, n_samples=64))
+    n_rays, n_steps, n_pose = (64, 4, 5) if tiny else (1024, 20, 50)
+    tr = BARFTrainer(BARFTrainConfig(num_cameras=2, **widths), device=dev)
+    tr.init()
+    batch = {k: v.to(dev) for k, v in barf_batch(n_rays, 16).items()}
+    field0 = [p.detach().clone() for p in tr.model.nerf.parameters()]
+    pose0 = tr.model.pose_refine.detach().clone()
+    tr.train_step(batch, 0, n_steps)  # warm-up, not timed
+    losses, step_ms = [], []
+    for s in range(n_steps):
+        sync()
+        t0 = time.perf_counter()
+        losses.append(tr.train_step(batch, s, n_steps))
+        sync()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    if on_card:
+        profile_ms(lambda: tr.train_step(batch, n_steps - 1, n_steps), "one BARF step", tag)
+    out["barf_losses"] = torch.stack(losses).tolist()
+    out["barf_moved"] = {
+        "field": max(float((p.detach() - q).abs().max()) for p, q in zip(tr.model.nerf.parameters(), field0)),
+        "pose_refine": float((tr.model.pose_refine.detach() - pose0).abs().max())}
+    out["barf_ms"] = step_ms
+    test = {k: v.to(dev) for k, v in barf_batch(n_rays, 17).items()}
+    bad = se3_exp(torch.tensor([0.04, -0.03, 0.03, 0.0, 0.0, 0.0], device=dev))
+    sync()
+    t0 = time.perf_counter()
+    c2w, pose_losses = tr.optimize_test_pose(test["rays_o"], test["rays_d"], test["rgb"], bad, n_steps=n_pose)
+    out["pose_step_ms"] = (time.perf_counter() - t0) * 1e3 / n_pose
+    out["pose_losses"], out["pose_c2w_finite"] = pose_losses, bool(torch.isfinite(c2w).all())
+    print(f"legacy: BARF (depth {widths['depth']}, width {widths['width']}, {widths['num_freqs_xyz']} and 4 bands, "
+          f"{widths['n_samples']} samples, {n_rays} rays a step): ms per step (host clock, synchronised) "
+          f"median {sorted(step_ms)[len(step_ms) // 2]!r}, min {min(step_ms)!r}, max {max(step_ms)!r}; loss "
+          f"{out['barf_losses'][0]!r} -> {out['barf_losses'][-1]!r}; max |update| field "
+          f"{out['barf_moved']['field']!r}, pose_refine {out['barf_moved']['pose_refine']!r}; test-time pose "
+          f"{n_pose} steps at {out['pose_step_ms']!r} ms a step (host clock, one copy of the losses at the end), "
+          f"loss {pose_losses[0]!r} -> {pose_losses[-1]!r} {tag}", flush=True)
+    return out
+
+
+# CUDA's documented float32 accuracy (the CUDA C++ Programming Guide's
+# table of single-precision functions): expf 2 ulp, logf 1 ulp, and x/y
+# correctly rounded with the default -prec-div=true.
+PROBE_ULP = {"exp": 2.0, "log": 1.0}
+
+
+def probe_checks(tag: str, device="cuda") -> dict:
+    """Phase 16's probe kernels outside the counted run: each against its
+    plain version and float64 on the probe's inputs, in ulps of the float32
+    result, and its time beside the plain op's, torch's op's and its bound."""
+    import numpy as np
+    import torch
+
+    from ggrt_official_torch.tools import diag_exp_precision as probe
+
+    out = {}
+    ins = probe.probe_inputs(torch.device(device))
+    for name, k in probe.KERNELS.items():
+        x = ins[name]
+        got, plain = k(x), k.plain(x)
+        xs, g, p = (a.cpu().numpy() for a in (x, got, plain))
+        want = probe.F64[name](xs.astype(np.float64))
+        row = {"max_abs_err": float(np.abs(g - p).max()), "ulp": float(probe.ulps(g, want).max()),
+               "plain_ulp": float(probe.ulps(p, want).max()), "vs_plain_ulp": float(probe.ulps(g, p.astype(np.float64)).max())}
+        if name == "recip":
+            row["rounded"] = bool(np.array_equal(g, want.astype(np.float32)))
+        nbytes = 8 * x.numel()
+        row["bound"] = bound(x.numel(), nbytes)
+        if torch.device(device).type == "cuda":
+            row["ms"] = cuda_ms(lambda: k.launch(x), 20)
+            row["plain_ms"] = cuda_ms(lambda: k.plain(x), 20)
+            row["library_ms"] = cuda_ms(lambda: {"exp": torch.exp, "recip": torch.reciprocal, "log": torch.log}[name](x), 20)
+        else:
+            row["ms"] = row["plain_ms"] = row["library_ms"] = float("nan")
+        out[name] = row
+        print(f"probe: {name} on {tuple(x.shape)}: kernel {row['ulp']!r} ulp, torch {row['plain_ulp']!r} ulp of float64 "
+              f"(bound {PROBE_ULP.get(name, 'correctly rounded')}); kernel against torch max abs "
+              f"{row['max_abs_err']!r} ({row['vs_plain_ulp']!r} ulp); {row['ms']!r} ms per launch (20 launches, CUDA events), plain "
+              f"{row['plain_ms']!r}, torch's op {row['library_ms']!r}, bound {row['bound'][0]!r} ms by {row['bound'][1]} ({nbytes} bytes at 3.35 TB/s) "
+              f"{tag}", flush=True)
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -1426,9 +1700,12 @@ def main() -> None:
     from ggrt_official_torch.ops.rasterizer import segment_sum as ss
     from ggrt_official_torch.training.trainer import GGRtTrainer
 
+    from ggrt_official_torch.tools import diag_exp_precision as probe
+
     dev = torch.device("cuda")
     fwd, bwd, seg, gat = cc.composite_fwd, cc.composite_bwd, ss.scatter_add_rows, bg.banked_lists
     kernels = (fwd, bwd, seg, gat)
+    probes = tuple(probe.KERNELS.values())
 
     # 1. card
     smi = subprocess.run(
@@ -1445,10 +1722,11 @@ def main() -> None:
 
     # 2. build
     t0 = time.perf_counter()
-    build_all(kernels)
-    print(f"build: {', '.join(k.source.name for k in kernels)} in {time.perf_counter() - t0:.2f} s "
+    build_all((*kernels, *probes))
+    built = list(dict.fromkeys(k.source.name for k in (*kernels, *probes)))
+    print(f"build: {', '.join(built)} in {time.perf_counter() - t0:.2f} s "
           f"(one nvcc each, in parallel)", flush=True)
-    for k in kernels:
+    for k in (*kernels, probes[0]):
         for line in k.build_log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {k.source.name}: {line.strip()}")
@@ -1915,9 +2193,52 @@ def main() -> None:
     mx, _, _ = check_compositors(fwd, bwd, rec, col, cnt, cap["tile"], torch.Generator(device=dev).manual_seed(15))
     err["composite_fwd"] = max(err["composite_fwd"], mx)
     del cap, rec, col, cnt, vp["captured"]
-    scene_tmp.cleanup()
     print(f"video, crop: ok in {time.perf_counter() - t0:.1f} s; launches video {launches['video']}, crop "
           f"{launches['crop']} {tag}", flush=True)
+    torch.cuda.empty_cache()
+
+    # 16. legacy and probe: reset the counts, drive eval_dbarf, the DBARF and
+    # BARF paths and the precision probe, read the counts.
+    t0 = time.perf_counter()
+    reset(*kernels, *probes)
+    lg = legacy_phase(tag, scene_root)
+    probe.main(device="cuda")
+    launches["legacy"] = counts(*kernels)
+    probe_launches = counts(*probes)
+    scene_tmp.cleanup()
+    print(f"legacy: launches (fwd, bwd, scatter, gather) {launches['legacy']} (the volume-rendering path does "
+          f"not rasterize); probe (exp, recip, log) {probe_launches}", flush=True)
+    if launches["legacy"] != (0, 0, 0, 0) or probe_launches != (1, 1, 1):
+        fail(f"legacy: launches {launches['legacy']} and probe {probe_launches}, not (0, 0, 0, 0) and (1, 1, 1)")
+    rows_ev = lg["eval"]["per_view"]
+    if len(rows_ev) != 2 or not all(math.isfinite(r[k]) for r in rows_ev for k in ("psnr", "ssim")):
+        fail(f"legacy: eval_dbarf per view {rows_ev}")
+    if not lg["chunk_ms"] or len(lg["view_ms"]) != 2:
+        fail(f"legacy: {len(lg['view_ms'])} views timed, {len(lg['chunk_ms'])} chunks")
+    # rgb in [0, 1]; depth up to the far plane, so its error is relative to it.
+    if not (lg["chunk_err"]["rgb"] < 1e-3 and lg["chunk_err"]["depth"] < 1e-3 * lg["far"]):
+        fail(f"legacy: a chunk on the card against the CPU, max abs {lg['chunk_err']} (must be < 1e-3 in rgb "
+             f"and < 1e-3 of the far plane {lg['far']} in depth)")
+    if not lg["posed_finite"]:
+        fail("legacy: the DBARF relative poses or the chunk rendered with them are not finite")
+    bl = lg["barf_losses"]
+    if not (all(math.isfinite(x) for x in bl) and bl[-1] < bl[0]):
+        fail(f"legacy: BARF losses {bl} (finite, the last below the first)")
+    if not all(v > 0 for v in lg["barf_moved"].values()):
+        fail(f"legacy: a BARF Adam group did not move {lg['barf_moved']}")
+    if not (all(math.isfinite(x) for x in lg["pose_losses"]) and lg["pose_c2w_finite"]):
+        fail(f"legacy: test-time pose losses {lg['pose_losses']}")
+    # The probe's kernels against their plain versions and float64, outside
+    # the counted run. The kernel and torch's op each keep CUDA's bound, so
+    # they differ by at most its double (exp 4, log 2 ulp; the division 0).
+    pc = probe_checks(tag)
+    for name, row in pc.items():
+        if name == "recip":
+            if not (row["rounded"] and row["vs_plain_ulp"] == 0):
+                fail(f"probe: 1/x is not correctly rounded or differs from torch's: {row}")
+        elif not (row["ulp"] <= PROBE_ULP[name] and row["vs_plain_ulp"] <= 2 * PROBE_ULP[name]):
+            fail(f"probe: {name} off CUDA's bound of {PROBE_ULP[name]} ulp: {row}")
+    print(f"legacy, probe: ok in {time.perf_counter() - t0:.1f} s {tag}", flush=True)
 
     sources = {
         "composite_fwd": ("ggrt_official_torch/csrc/composite_fwd.cu",
@@ -1943,11 +2264,20 @@ def main() -> None:
             "launches": n, "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
         })
+    # The probe's rows: launches from phase 16's counted run.
+    for (name, row), n, line in zip(pc.items(), probe_launches, (13, 17, 21)):
+        table.append({
+            "name": f"probe_{name}", "route": "cuda", "source": "ggrt_official_torch/csrc/precision_probe.cu",
+            "replaces": f"tools/diag_exp_precision.py:{line}", "launches": n, "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound"][0], "bound_by": row["bound"][1],
+            "library_ms": row["library_ms"],
+        })
     if not (launches["serve"][0] and all(launches["train"][:3]) and all(launches["raster"])
             and launches["eval"][0] and all(launches["loop"][:3]) and all(launches["finetune"][:3])
             and all(launches["cache"][:3]) and all(launches["flagship"][:3])
-            and all(launches["llff"][:3]) and launches["video"][0] and launches["crop"][0]):
-        fail(f"a kernel of a path was not launched: {launches}")
+            and all(launches["llff"][:3]) and launches["video"][0] and launches["crop"][0]
+            and all(probe_launches)):
+        fail(f"a kernel of a path was not launched: {launches}, probe {probe_launches}")
     print(smi)
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

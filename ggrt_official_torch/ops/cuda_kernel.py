@@ -5,7 +5,8 @@ entry point that launches on the stream it is given and returns
 `cudaGetLastError()`; sources may include the headers (`*.cuh`) beside
 them. At first use nvcc compiles the source for sm_90a into a shared
 library under the git-ignored `_build/`, named by the hash of the source
-and the headers, and ctypes loads it. `build_all` starts one nvcc per source at once.
+and the headers, and ctypes loads it. `build_all` starts one nvcc per source at once;
+several kernels (C entry points) may share one source.
 
 A `CudaKernel` counts its launches: `launches` goes up by one where the
 kernel is launched and nowhere else, so a run can show that the main path
@@ -84,10 +85,16 @@ class CudaKernel:
 
 
 def build_all(kernels) -> None:
-    """Build several kernels at once, one nvcc process each."""
-    with ThreadPoolExecutor(max_workers=len(kernels)) as pool:
-        for f in [pool.submit(k.build) for k in kernels]:
+    """Build several kernels at once, one nvcc process per source; kernels
+    that share a source then load its library."""
+    first = {}
+    for k in kernels:
+        first.setdefault(k.source, k)
+    with ThreadPoolExecutor(max_workers=len(first)) as pool:
+        for f in [pool.submit(k.build) for k in first.values()]:
             f.result()
+    for k in kernels:
+        k.build()
 
 
 def check_tensors(device: torch.device, **named) -> None:

@@ -244,6 +244,71 @@ def encoder_name_map(cfg) -> list[tuple[str, tuple[str, ...], str]]:
     return rows
 
 
+# --- the legacy IBRNet / DBARF / NeRF / BARF path ----------------------------
+# The port's module names there are the flax names, except the norms
+# (flax's scale -> weight) and the basic block's auto-named children.
+
+def ibrnet_name_map(anti_alias_pooling: bool = True):
+    """Every parameter of models/ibrnet.IBRNet."""
+    rows: list = []
+    for name in ("ray_dir_fc0", "ray_dir_fc1", "base_fc0", "base_fc1", "vis_fc0", "vis_fc1", "vis_fc2_0",
+                 "vis_fc2_1", "geometry_fc0", "geometry_fc1", "out_geometry_fc0", "out_geometry_fc1",
+                 "rgb_fc0", "rgb_fc1", "rgb_fc2"):
+        rows += dense_map(name, (name,))
+    if anti_alias_pooling:
+        rows.append(("s", ("s",), "raw"))
+    for name in ("w_qs", "w_ks", "w_vs", "fc"):
+        rows.append((f"ray_attention.{name}.weight", ("ray_attention", name, "kernel"), "dense"))
+    rows += ln_map("ray_attention.layer_norm", ("ray_attention", "LayerNorm_0"))
+    return rows
+
+
+def resunet_name_map():
+    """Every parameter of models/feature_unet.ResUNet. A basic block's
+    children are flax's Conv_i / AffineInstanceNorm_i in creation order:
+    conv1, norm1, conv2, norm2, then the projection where there is one."""
+    rows = conv_map("conv1", ("conv1",), bias=False) + ln_map("norm1", ("norm1",))
+    for stage, n_blocks in (("layer1", 3), ("layer2", 4), ("layer3", 6)):
+        for b in range(n_blocks):
+            block = f"{stage}_b{b}"
+            children = [("conv1", "norm1"), ("conv2", "norm2")] + ([("downsample", "downsample_norm")] if b == 0 else [])
+            for i, (conv, norm) in enumerate(children):
+                rows += conv_map(f"{block}.{conv}", (block, f"Conv_{i}"), bias=False)
+                rows += ln_map(f"{block}.{norm}", (block, f"AffineInstanceNorm_{i}"))
+    for name in ("upconv3", "iconv3", "upconv2", "iconv2"):
+        rows += conv_map(name, (name,)) + ln_map(f"{name}_norm", (f"{name}_norm",))
+    rows += conv_map("out_conv", ("out_conv",))
+    return rows
+
+
+def ibrnet_model_name_map(coarse_only: bool = True):
+    """Every parameter of models/dbarf.IBRNetModel."""
+    rows = prefix_map(ibrnet_name_map(), "net_coarse", ("net_coarse",))
+    if not coarse_only:
+        rows += prefix_map(ibrnet_name_map(), "net_fine", ("net_fine",))
+    return rows + prefix_map(resunet_name_map(), "feature_net", ("feature_net",))
+
+
+def dbarf_name_map(iponet_cfg, coarse_only: bool = True):
+    """Every parameter of models/dbarf.DBARFModel: the IBRNet model and the
+    IPO-Net rows of `depth_pose_net_name_map`."""
+    return (prefix_map(ibrnet_model_name_map(coarse_only), "ibrnet", ("ibrnet",))
+            + prefix_map(depth_pose_net_name_map(iponet_cfg.feat_ratio), "pose_learner", ("pose_learner",)))
+
+
+def nerf_mlp_name_map(depth: int = 8):
+    """Every parameter of models/nerf.NeRFMLP."""
+    rows: list = []
+    for name in [f"fc{i}" for i in range(depth)] + ["sigma", "feat", "rgb_fc", "rgb"]:
+        rows += dense_map(name, (name,))
+    return rows
+
+
+def barf_name_map(depth: int = 8):
+    """Every parameter of models/nerf.BARFModel."""
+    return prefix_map(nerf_mlp_name_map(depth), "nerf", ("nerf",)) + [("pose_refine", ("pose_refine",), "raw")]
+
+
 # --- conversion -------------------------------------------------------------
 
 def _from_flax(kind: str, value: np.ndarray) -> np.ndarray:
@@ -264,7 +329,8 @@ def _convert(tree: dict, rows, prefix: str) -> dict:
         node = tree
         for part in path:
             node = node[part]
-        state[prefix + key] = torch.tensor(np.ascontiguousarray(_from_flax(kind, np.asarray(node))))
+        value = _from_flax(kind, np.asarray(node))
+        state[prefix + key] = torch.tensor(np.ascontiguousarray(value).reshape(value.shape))
     return state
 
 
@@ -316,3 +382,42 @@ def init_flax_defaults(module: nn.Module, generator: torch.Generator) -> None:
         _lecun_normal_(m.weight, fan_in, generator)
         if m.bias is not None:
             m.bias.zero_()
+
+
+def _params(flax_params: dict) -> dict:
+    return flax_params.get("params", flax_params)
+
+
+def ibrnet_params_from_jax(flax_params: dict, anti_alias_pooling: bool = True) -> dict:
+    """flax IBRNet params -> a state_dict for the port's IBRNet."""
+    return _convert(_params(flax_params), ibrnet_name_map(anti_alias_pooling), "")
+
+
+def resunet_params_from_jax(flax_params: dict) -> dict:
+    """flax ResUNet params -> a state_dict for the port's ResUNet."""
+    return _convert(_params(flax_params), resunet_name_map(), "")
+
+
+def ibrnet_model_params_from_jax(flax_params: dict, coarse_only: bool = True) -> dict:
+    """flax IBRNetModel params -> a state_dict for the port's IBRNetModel."""
+    return _convert(_params(flax_params), ibrnet_model_name_map(coarse_only), "")
+
+
+def dbarf_params_from_jax(flax_params: dict, iponet_cfg, coarse_only: bool = True) -> dict:
+    """flax DBARFModel params {"ibrnet", "pose_learner"} -> a state_dict for
+    the port's DBARFModel; the IPO-Net rows through `iponet_params_from_jax`."""
+    tree = _params(flax_params)
+    state = {"ibrnet." + k: v for k, v in ibrnet_model_params_from_jax(tree["ibrnet"], coarse_only).items()}
+    state.update({"pose_learner." + k: v for k, v in iponet_params_from_jax(tree["pose_learner"], iponet_cfg).items()})
+    return state
+
+
+def nerf_params_from_jax(flax_params: dict, depth: int = 8) -> dict:
+    """flax NeRFMLP params -> a state_dict for the port's NeRFMLP."""
+    return _convert(_params(flax_params), nerf_mlp_name_map(depth), "")
+
+
+def barf_params_from_jax(flax_params: dict, depth: int = 8) -> dict:
+    """flax BARFModel params {"nerf", "pose_refine"} -> a state_dict for the
+    port's BARFModel."""
+    return _convert(_params(flax_params), barf_name_map(depth), "")

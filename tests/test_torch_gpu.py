@@ -693,3 +693,164 @@ def test_lpips_on_card_matches_cpu(cuda):
         got = card(a.to(cuda), b.to(cuda)).cpu()
     assert got.shape == (2,) and (want > 0).all()
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
+
+
+# --- the legacy volume-rendering path, BARF and the precision probe ----------
+
+PROBE_BOUND_ULP = {"exp": 2.0, "log": 1.0}
+
+
+@pytest.mark.parametrize("name", ["exp", "recip", "log"])
+def test_probe_kernel_matches_plain(cuda, name):
+    """Each probe kernel on the probe's inputs, one launch: within CUDA's
+    documented bound of float64 (expf 2 ulp, logf 1 ulp; 1/x correctly
+    rounded, so equal to float64's quotient rounded to float32), and within
+    twice that of torch's op (which keeps the same bound)."""
+    from ggrt_official_torch.tools import diag_exp_precision as probe
+
+    k = probe.KERNELS[name]
+    x = probe.probe_inputs(cuda)[name]
+    launches = k.launches
+    got = k(x)
+    torch.cuda.synchronize()
+    assert k.launches == launches + 1 and got.is_cuda and got.shape == x.shape
+    xs, g, p = (a.cpu().numpy() for a in (x, got, k.plain(x)))
+    want = probe.F64[name](xs.astype(np.float64))
+    if name == "recip":
+        np.testing.assert_array_equal(g, want.astype(np.float32))
+        np.testing.assert_array_equal(g, p)
+    else:
+        assert probe.ulps(g, want).max() <= PROBE_BOUND_ULP[name]
+        assert probe.ulps(g, p.astype(np.float64)).max() <= 2 * PROBE_BOUND_ULP[name]
+
+
+def test_probe_wrapper_rejects_bad_input(cuda):
+    """A float64 or strided card tensor is refused before any launch."""
+    from ggrt_official_torch.tools import diag_exp_precision as probe
+
+    launches = probe.probe_log.launches
+    with pytest.raises(ValueError):
+        probe.probe_log(torch.rand(8, 128, device=cuda, dtype=torch.float64))
+    with pytest.raises(ValueError):
+        probe.probe_log(torch.rand(128, 8, device=cuda).T)
+    assert probe.probe_log.launches == launches
+
+
+def legacy_chunk(device):
+    """A tiny IBRNetModel (seed 0) and a 256-ray batch of the volume tests'
+    scene on `device`, with predicted relative poses."""
+    from ggrt_official_torch.config import tiny_config
+    from ggrt_official_torch.models.dbarf import IBRNetModel
+    from ggrt_official_torch.rendering.rays import get_rays_single_image
+
+    rng = np.random.RandomState(0)
+    h, w, v = 24, 32, 3
+
+    def camera(c2w):
+        K = np.eye(4)
+        K[:3, :3] = [[30.0, 0, w / 2], [0, 33.0, h / 2], [0, 0, 1]]
+        return np.concatenate([[h, w], K.ravel(), c2w.ravel()]).astype(np.float32)
+
+    def pose():
+        c2w = np.eye(4)
+        c2w[:3, 3] = rng.uniform(-0.3, 0.3, 3) * [1, 1, 0.2]
+        return c2w
+
+    t = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
+    model = IBRNetModel(tiny_config(), coarse_feat_dim=8, n_samples=16, device=device).eval()
+    query, src = camera(pose()), np.stack([camera(pose()) for _ in range(v)])
+    ro, rd = get_rays_single_image(h, w, t(query[2:18]).reshape(1, 4, 4), t(query[18:34]).reshape(1, 4, 4))
+    src_rgbs = t(rng.uniform(size=(v, h, w, 3)))
+    batch = {"ray_o": ro[:256], "ray_d": rd[:256], "depth_range": t([1.5, 6.0]), "camera": t(query),
+             "src_rgbs": src_rgbs, "src_cameras": t(src)}
+    rel = t(rng.normal(size=(v, 6)) * 0.03)
+    return model, batch, rel
+
+
+def test_render_rays_chunk_waits_for_nothing(cuda):
+    """A chunk of render_rays with relative poses (the feature net, the
+    projection with its pose inverses, the gathers, IBRNet, compositing)
+    queues all its work without a host sync, after one warm-up call. In
+    float64 the card's chunk equals the CPU's to 1e-9 (rgb, depth), the
+    card's feature maps given to both. In float32 they differ by far more
+    than rounding (atol 2e-2 in rgb and 1% of the far plane, 6e-2, in
+    depth here): IBRNet's anti-alias weights are differences of
+    exp values that agree to ~1e-5 where the source views see a sample
+    from nearly one direction, so one ulp of exp moves a weight by ~1%, and
+    the card's expf keeps 2 ulp (1.82 measured by the probe) where the
+    CPU's keeps ~0.5."""
+    import copy
+
+    from ggrt_official_torch.rendering import volume
+
+    model, batch, rel = legacy_chunk(cuda)
+
+    def run(m, b, r, feats=None):
+        feats = m.extract_features(b["src_rgbs"])[0] if feats is None else feats
+        return volume.render_rays(b, m.coarse, (feats, None), 16, inv_uniform=True, det=True,
+                                  rel_poses=r)["outputs_coarse"]
+
+    def as64(m, b, r, feats):
+        return copy.deepcopy(m).double(), {k: v.double() for k, v in b.items()}, r.double(), feats.double()
+
+    with torch.inference_mode():
+        first = run(model, batch, rel)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            again = run(model, batch, rel)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        feats = model.extract_features(batch["src_rgbs"])[0]
+        cpu_model, cpu_batch, cpu_rel = legacy_chunk("cpu")
+        want32 = run(cpu_model, cpu_batch, cpu_rel, feats.cpu())
+        card64 = run(*as64(model, batch, rel, feats))
+        cpu64 = run(*as64(cpu_model, cpu_batch, cpu_rel, feats.cpu()))
+    assert torch.equal(again["rgb"], first["rgb"])
+    for k in ("rgb", "depth"):
+        torch.testing.assert_close(card64[k].cpu(), cpu64[k], rtol=1e-9, atol=1e-9)
+        torch.testing.assert_close(again[k].cpu(), want32[k], rtol=0, atol={"rgb": 2e-2, "depth": 6e-2}[k])
+
+
+def test_barf_train_step_waits_for_nothing(cuda):
+    """A BARFTrainer step (the draws, the corrected pose, the annealed
+    field, Adam on both groups) queues all its work without a host sync
+    after one warm-up step; its loss stays a tensor on the card."""
+    from ggrt_official_torch.training.barf_trainer import BARFTrainConfig, BARFTrainer
+
+    tr = BARFTrainer(BARFTrainConfig(num_cameras=2, depth=4, width=32, num_freqs_xyz=4, n_samples=16), device=cuda)
+    tr.init()
+    gen = torch.Generator().manual_seed(0)
+    d = torch.randn(64, 3, generator=gen) * torch.tensor([0.3, 0.3, 0.0]) + torch.tensor([0.0, 0.0, 1.0])
+    batch = {"rays_o": torch.zeros(64, 3), "rays_d": d / d.norm(dim=-1, keepdim=True),
+             "rgb": torch.rand(64, 3, generator=gen), "cam_idx": torch.tensor(1), "base_c2w": torch.eye(4)}
+    batch = {k: v.to(cuda) for k, v in batch.items()}
+    tr.train_step(batch, 0, 10)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss = tr.train_step(batch, 3, 10)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert loss.is_cuda and loss.dim() == 0 and torch.isfinite(loss)
+    assert float(tr.model.pose_refine[1].abs().max()) > 0 and float(tr.model.pose_refine[0].abs().max()) == 0
+
+
+def test_resunet_on_card_matches_cpu(cuda):
+    """ResUNet (coarse and fine maps) on the card against the CPU, same
+    weights, 2 images of 36x52: rtol 1e-4, atol 1e-4 (cuDNN's float32
+    convolutions sum in another order; TF32 off)."""
+    from ggrt_official_torch.models.feature_unet import ResUNet
+    from ggrt_official_torch.weights import init_flax_defaults
+
+    cpu = ResUNet(coarse_out_ch=8, fine_out_ch=4)
+    init_flax_defaults(cpu, torch.Generator().manual_seed(0))
+    card = ResUNet(coarse_out_ch=8, fine_out_ch=4).to(cuda)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.rand(2, 36, 52, 3, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        want = cpu(x)
+        got = card(x.to(cuda))
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.is_cuda
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4)

@@ -42,6 +42,9 @@ def test_walk_sees_the_package():
                 "evaluation/crop_eval.py", "scripts/eval_crop.py", "evaluation/lpips.py",
                 "geometry/lie_group.py", "evaluation/pose_accuracy.py", "geometry/tracks.py",
                 "geometry/pose_init.py", "sfm/disambiguation.py", "sfm/retrieval.py", "sfm/two_view.py",
-                "sfm/pipeline.py", "scripts/extract_relative_poses.py"):
+                "sfm/pipeline.py", "scripts/extract_relative_poses.py", "rendering/rays.py",
+                "rendering/projector.py", "rendering/volume.py", "models/ibrnet.py", "models/feature_unet.py",
+                "models/dbarf.py", "models/nerf.py", "training/barf_trainer.py", "scripts/eval_dbarf.py",
+                "tools/diag_exp_precision.py"):
         assert f"ggrt_official_torch/{sub}" in names, sub
     assert "jax" in imported_roots(ROOT / "ggrt_official_tpu" / "ops" / "rasterizer" / "api.py")
