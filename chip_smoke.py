@@ -180,6 +180,29 @@ Phases; each one that fails stops the run with a non-zero exit:
              plain version and float64 at CUDA's documented bounds (expf 2
              ulp, logf 1 ulp, the division correctly rounded; kernel and
              torch's op at most twice that apart) and timed beside its bound.
+ 17. observability: at pretrain_config() width (a GGRtModel from seed 0),
+             320x448, 5 source views. (a) utils.Benchmarker(device="cuda")
+             times 3 requests (it synchronises at entry and exit), then
+             dump and dump_memory: per-tag ms beside phase 4's, the peak
+             allocated bytes. (b) utils.encoder_visualizer's
+             dump_encoder_visualizations on one request with its capture
+             taps on: the dumped images' names and shapes, the PNGs, the
+             host ms, at least one composite_fwd launch; its rendered_rgb
+             equals the same request's rgb without the taps, bit for bit;
+             outside the counts, the compositors against their plain
+             versions (phase 3's tolerances) on that render's records. (c)
+             the Evaluator's evaluate_dataset with an out_dir on one test
+             view (time_render at one iteration): pred_0000.png decodes to
+             the view's prediction, clipped to [0, 1], within 1/255;
+             poses_pred_vs_gt.png is
+             written exactly when matplotlib is present. (d) the native
+             library: g++'s version, built and loaded (no fallback), on
+             phase 14's folder LLFFTestDataset.__getitem__ with
+             GGRT_NATIVE_RESIZE=1 and without (host ms each, images within
+             a mean of 0.03), pose_distances against numpy and a ring of 8
+             blobs. (e) apply_color_map, draw_lines, hcat and add_label on
+             the request's depth and image on the card against the CPU
+             within 1e-6 (add_label by shape).
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or outside a checkout
 of the repository, it prints no result and exits non-zero.
@@ -1680,6 +1703,162 @@ def probe_checks(tag: str, device="cuda") -> dict:
     return out
 
 
+def observability_phase(kernels, tag: str, root: Path, device="cuda", cfg=None, image=IMAGE) -> dict:
+    """Phase 17's paths at `cfg` (pretrain_config() by default) width: the
+    Benchmarker around 3 requests, the encoder dump of one request (its
+    launches counted; the records of its rgb render kept, copies made
+    without a launch, for the caller's compositor check), the Evaluator's
+    image writes on one test view, the native library on the LLFF folder
+    phase 14 wrote under `root`, and the device visualizations. Returns
+    what the caller checks and prints; raises nothing of its own."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from ggrt_official_torch import config, native
+    from ggrt_official_torch.data import datasets
+    from ggrt_official_torch.data.shims import get_data_shim
+    from ggrt_official_torch.evaluation.harness import Evaluator
+    from ggrt_official_torch.models.ggrt import GGRtModel
+    from ggrt_official_torch.ops.rasterizer import cuda_composite as cc
+    from ggrt_official_torch.utils import Benchmarker
+    from ggrt_official_torch.utils.encoder_visualizer import dump_encoder_visualizations
+    from ggrt_official_torch.visualization import add_label, apply_color_map, draw_lines, hcat
+
+    dev = torch.device(device)
+    cfg = cfg or config.pretrain_config()
+    out = {}
+    model = GGRtModel(cfg, device=dev, generator=torch.Generator().manual_seed(0)).eval()
+    shim = get_data_shim(cfg.encoder)
+    requests = [make_request(seed, image, 8, cfg.train.num_source_views, shim, dev) for seed in range(3)]
+    tmp = tempfile.TemporaryDirectory()
+    work = Path(tmp.name)
+
+    # (a) the Benchmarker around 3 requests.
+    with torch.inference_mode():
+        model.gaussian(requests[0], 0, deterministic=True)  # warm-up
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        bm = Benchmarker(device=dev)
+        before = counts(*kernels)
+        for batch in requests:
+            with bm.time("request"):
+                ret, _ = model.gaussian(batch, 0, deterministic=True)
+        out["bench_made"] = tuple(a - b for a, b in zip(counts(*kernels), before))
+    bm.dump(work / "times.json")
+    out["times"] = json.loads((work / "times.json").read_text())
+    out["memory"] = bm.dump_memory(work / "memory.json")
+    out["memory_json"] = json.loads((work / "memory.json").read_text())
+    depth, rgb_img = ret["depth"][0, 0], ret["rgb"][0, 0]
+
+    # (b) the encoder dump, counted; the rgb render's records kept.
+    captured = {}
+    build = cc.build_records
+
+    def capture(pg, binning, tile_h=cc.TILE_H, tile_w=cc.TILE_W):
+        recs = build(pg, binning, tile_h, tile_w)
+        if not captured:
+            captured.update(records=tuple(x.detach().clone() for x in recs), tile=(tile_h, tile_w))
+        return recs
+
+    with torch.inference_mode():
+        plain, _ = model.gaussian(requests[0], 0, deterministic=True)
+        plain_rgb = plain["rgb"].cpu().numpy()
+    before = counts(*kernels)
+    cc.build_records = capture
+    try:
+        t0 = time.perf_counter()
+        dumps = dump_encoder_visualizations(model, requests[0], 0, image, out_dir=str(work / "dump"))
+        out["dump_ms"] = (time.perf_counter() - t0) * 1e3
+    finally:
+        cc.build_records = build
+    out["dump_made"] = tuple(a - b for a, b in zip(counts(*kernels), before))
+    out["dump_shapes"] = {k: tuple(v.shape) for k, v in dumps.items()}
+    out["dump_pngs"] = sorted(os.listdir(work / "dump"))
+    out["dump_finite"] = all(np.isfinite(v).all() for v in dumps.values())
+    out["dump_rgb_equal"] = bool(np.array_equal(dumps["rendered_rgb"], plain_rgb))
+    out["captured"] = captured
+    del dumps, plain
+
+    # (c) the evaluator's two images.
+    ev = Evaluator(cfg, model, device=dev)
+    inner_time_render, inner_view = ev.time_render, ev.evaluate_view
+    ev.time_render = lambda b, iters=20: inner_time_render(b, iters=1)
+    views = []
+    ev.evaluate_view = lambda *a, **k: views.append(inner_view(*a, **k)) or views[-1]
+    ds = datasets.SyntheticPlanesDataset(datasets.SyntheticSceneSpec(n_views=8, image_size=image, seed=7),
+                                         mode="test", num_source_views=cfg.train.num_source_views)
+    t0 = time.perf_counter()
+    out["eval_summary"] = ev.evaluate_dataset(ds, out_dir=str(work / "eval"), limit=1)
+    out["eval_s"] = time.perf_counter() - t0
+    png = work / "eval" / "pred_0000.png"
+    # The PNG holds the prediction clipped to [0, 1], as in the JAX package.
+    out["pred_png_err"] = (np.abs(np.asarray(Image.open(png), np.float64) / 255.0
+                                  - np.clip(views[0]["pred"].transpose(1, 2, 0), 0, 1)).max()
+                           if png.exists() else None)
+    out["poses_png"] = (work / "eval" / "poses_pred_vs_gt.png").exists()
+    try:
+        import matplotlib
+        out["matplotlib"] = matplotlib.__version__
+    except ImportError:
+        out["matplotlib"] = "absent"
+
+    # (d) the native library on phase 14's LLFF folder.
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True)
+    out["gxx"] = gxx.stdout.splitlines()[0] if gxx.returncode == 0 and gxx.stdout else None
+    t0 = time.perf_counter()
+    out["native"] = native.available()
+    out["native_build_s"] = time.perf_counter() - t0
+    out["native_log"] = native.build_log
+    lds = datasets.LLFFTestDataset(str(root), "train", scenes=("synth",), num_source_views=cfg.train.num_source_views)
+    examples, getitem_ms = {}, {}
+    for mode in ("numpy", "native"):
+        os.environ.pop("GGRT_NATIVE_RESIZE", None)
+        if mode == "native":
+            os.environ["GGRT_NATIVE_RESIZE"] = "1"
+        try:
+            lds[0]
+            t0 = time.perf_counter()
+            examples[mode] = [lds[i] for i in range(5)]
+            getitem_ms[mode] = (time.perf_counter() - t0) / 5 * 1e3
+        finally:
+            os.environ.pop("GGRT_NATIVE_RESIZE", None)
+    out["getitem_ms"] = getitem_ms
+    out["resize_mean_abs"] = max(float(np.abs(a[k] - b[k]).mean()) for a, b in zip(examples["numpy"], examples["native"])
+                                 for k in ("rgb", "src_rgbs"))
+    out["resize_shapes"] = (examples["native"][0]["rgb"].shape, examples["native"][0]["src_rgbs"].shape)
+    poses = np.stack(lds.train_poses[0]).astype(np.float32)
+    out["pose_distances_err"] = float(np.abs(native.pose_distances(poses, poses[3])
+                                             - np.linalg.norm(poses[:, :3, 3] - poses[3, :3, 3], axis=-1)).max())
+    ring = native.PrefetchRing(capacity=8)
+    blobs = [bytes([i]) * (1000 + i) for i in range(8)]
+    pushed = [ring.push(b) for b in blobs] + [ring.push(b"ninth")]
+    out["ring_ok"] = pushed == [True] * 8 + [False] and [ring.pop() for _ in range(9)] == blobs + [None]
+
+    # (e) device visualization on the request's depth and image.
+    dn = (depth - depth.min()) / (depth.max() - depth.min())
+    gen = torch.Generator().manual_seed(17)
+    start = torch.rand(8, 2, generator=gen) * torch.tensor([image[1], image[0]])
+    end = torch.rand(8, 2, generator=gen) * torch.tensor([image[1], image[0]])
+    calls = {"apply_color_map": lambda d, i: apply_color_map(d, "turbo"),
+             "draw_lines": lambda d, i: draw_lines(i, start, end, (1.0, 0.2, 0.1), 2.0),
+             "hcat": lambda d, i: hcat(i, d[None].expand(3, -1, -1)),
+             "add_label": lambda d, i: add_label(i, "request 0")}
+    vis = {}
+    for name, fn in calls.items():
+        got, want = fn(dn, rgb_img), fn(dn.cpu(), rgb_img.cpu())
+        vis[name] = dict(device=got.device.type, shape=tuple(got.shape), finite=bool(torch.isfinite(got).all()),
+                         err=None if name == "add_label" else float((got.cpu() - want).abs().max()),
+                         same_shape=tuple(want.shape) == tuple(got.shape))
+    out["vis"] = vis
+    tmp.cleanup()
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -2205,7 +2384,6 @@ def main() -> None:
     probe.main(device="cuda")
     launches["legacy"] = counts(*kernels)
     probe_launches = counts(*probes)
-    scene_tmp.cleanup()
     print(f"legacy: launches (fwd, bwd, scatter, gather) {launches['legacy']} (the volume-rendering path does "
           f"not rasterize); probe (exp, recip, log) {probe_launches}", flush=True)
     if launches["legacy"] != (0, 0, 0, 0) or probe_launches != (1, 1, 1):
@@ -2239,6 +2417,65 @@ def main() -> None:
         elif not (row["ulp"] <= PROBE_ULP[name] and row["vs_plain_ulp"] <= 2 * PROBE_ULP[name]):
             fail(f"probe: {name} off CUDA's bound of {PROBE_ULP[name]} ulp: {row}")
     print(f"legacy, probe: ok in {time.perf_counter() - t0:.1f} s {tag}", flush=True)
+    torch.cuda.empty_cache()
+
+    # 17. observability: reset the counts before the Benchmarker's requests
+    # and before the encoder dump, read them after each.
+    t0 = time.perf_counter()
+    reset(*kernels)
+    ob = observability_phase(kernels, tag, scene_root)
+    scene_tmp.cleanup()
+    launches["bench"], launches["dump"] = ob["bench_made"], ob["dump_made"]
+    req = ob["times"].get("request", [])
+    peak = ob["memory"].get("device_0", {}).get("allocated_bytes.all.peak")
+    print(f"observability: Benchmarker request ms {', '.join(repr(x * 1e3) for x in req)} (phase 4: "
+          f"{', '.join(f'{x:.1f}' for x in request_ms)}); dump_memory peak allocated {peak} bytes over "
+          f"{len(ob['memory'])} card(s); launches {ob['bench_made']} {tag}", flush=True)
+    if len(req) != 3 or not all(math.isfinite(x) and x > 0 for x in req) or ob["bench_made"] != (6, 0, 0, 0):
+        fail(f"observability: Benchmarker times {req}, launches {ob['bench_made']} (3 requests of 2 forwards)")
+    if not (peak and peak > 0 and ob["memory_json"] == ob["memory"]):
+        fail("observability: dump_memory wrote no peak for device_0")
+    print("observability: dump " + ", ".join(f"{k} {v}" for k, v in ob["dump_shapes"].items())
+          + f"; PNGs {ob['dump_pngs']}; {ob['dump_ms']!r} ms on the host; launches (fwd, bwd, scatter, gather) "
+          f"{ob['dump_made']}; rendered_rgb equals the plain request's: {ob['dump_rgb_equal']} {tag}", flush=True)
+    if ob["dump_made"][0] < 1 or not ob["dump_rgb_equal"] or not ob["dump_finite"]:
+        fail(f"observability: dump launches {ob['dump_made']}, rgb equal {ob['dump_rgb_equal']}, finite "
+             f"{ob['dump_finite']}")
+    if not (any(k.startswith("attention_") for k in ob["dump_shapes"]) and "depth_pdf_v0" in ob["dump_shapes"]
+            and ob["dump_pngs"] == sorted(f"{k}.png" for k in ob["dump_shapes"])):
+        fail(f"observability: dump images {sorted(ob['dump_shapes'])}, PNGs {ob['dump_pngs']}")
+    cap = ob.pop("captured")
+    if not cap:
+        fail("observability: the dump's render was not captured")
+    rec, col, cnt = cap["records"]
+    print(f" dump render records (pretrain_config(), 320x448): t={rec.shape[0]} K={rec.shape[2]}; list "
+          f"lengths min {int(cnt.min())} max {int(cnt.max())}")
+    mx, mxb, _ = check_compositors(fwd, bwd, rec, col, cnt, cap["tile"], torch.Generator(device=dev).manual_seed(17))
+    err["composite_fwd"], err["composite_bwd"] = max(err["composite_fwd"], mx), max(err["composite_bwd"], mxb)
+    del cap, rec, col, cnt
+    print(f"observability: evaluate_dataset with out_dir {ob['eval_s']!r} s; pred_0000.png max abs "
+          f"{ob['pred_png_err']!r} from the clipped prediction; poses_pred_vs_gt.png written {ob['poses_png']}; "
+          f"matplotlib {ob['matplotlib']}", flush=True)
+    if ob["pred_png_err"] is None or ob["pred_png_err"] > 1 / 255 + 1e-7:
+        fail(f"observability: pred_0000.png off the prediction by {ob['pred_png_err']}")
+    if ob["poses_png"] != (ob["matplotlib"] != "absent"):
+        fail(f"observability: poses_pred_vs_gt.png written {ob['poses_png']} with matplotlib {ob['matplotlib']}")
+    print(f"observability: {ob['gxx']}; native library {'built and loaded' if ob['native'] else 'NOT built'} in "
+          f"{ob['native_build_s']:.2f} s; LLFFTestDataset.__getitem__ {ob['getitem_ms']['numpy']!r} ms numpy, "
+          f"{ob['getitem_ms']['native']!r} ms GGRT_NATIVE_RESIZE=1 (host; examples {ob['resize_shapes']}); "
+          f"images differ by a mean of at most {ob['resize_mean_abs']!r}; pose_distances max abs "
+          f"{ob['pose_distances_err']!r}; ring of 8 blobs {ob['ring_ok']} {tag}", flush=True)
+    if not ob["gxx"] or not ob["native"]:
+        fail(f"observability: the native library did not build or load: {ob['gxx']}\n{ob['native_log']}")
+    if not (ob["resize_mean_abs"] < 0.03 and ob["pose_distances_err"] < 1e-5 and ob["ring_ok"]):
+        fail(f"observability: native resize mean {ob['resize_mean_abs']} (< 0.03), pose_distances "
+             f"{ob['pose_distances_err']}, ring {ob['ring_ok']}")
+    print("observability: on the card " + ", ".join(f"{k} {v}" for k, v in ob["vis"].items()), flush=True)
+    for name, v in ob["vis"].items():
+        if not (v["device"] == "cuda" and v["finite"] and v["same_shape"] and (v["err"] is None or v["err"] <= 1e-6)):
+            fail(f"observability: {name} on the card {v}")
+    print(f"observability: ok in {time.perf_counter() - t0:.1f} s; launches bench {launches['bench']}, dump "
+          f"{launches['dump']} {tag}", flush=True)
 
     sources = {
         "composite_fwd": ("ggrt_official_torch/csrc/composite_fwd.cu",
@@ -2276,7 +2513,7 @@ def main() -> None:
             and launches["eval"][0] and all(launches["loop"][:3]) and all(launches["finetune"][:3])
             and all(launches["cache"][:3]) and all(launches["flagship"][:3])
             and all(launches["llff"][:3]) and launches["video"][0] and launches["crop"][0]
-            and all(probe_launches)):
+            and all(probe_launches) and launches["bench"][0] and launches["dump"][0]):
         fail(f"a kernel of a path was not launched: {launches}, probe {probe_launches}")
     print(smi)
     print(json.dumps({"kernels": table}))

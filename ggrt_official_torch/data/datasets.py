@@ -360,6 +360,37 @@ class SyntheticPlanesDataset:
             T = T * (1 - a)
         return out
 
+    def depth_map(self, view_idx: int) -> np.ndarray:
+        """Expected camera-space depth (h, w) of an absolute view index: the
+        alpha-weighted first-surface depth, Σ T·a·z + T_fin·z_last. With the
+        near-binary plane alphas this is about the first hit's depth (for the
+        photometric-loss diagnostics and depth-supervision tests)."""
+        c2w = self.poses[view_idx]
+        h, w = self.spec.image_size
+        xs, ys = np.meshgrid(np.arange(w) + 0.5, np.arange(h) + 0.5)
+        Kinv = np.linalg.inv(self.K)
+        dirs_cam = np.einsum("ij,jhw->ihw", Kinv, np.stack([xs, ys, np.ones_like(xs)]))
+        R, t = c2w[:3, :3], c2w[:3, 3]
+        dirs = np.einsum("ij,jhw->ihw", R, dirs_cam)
+        depth = np.zeros((h, w), np.float32)
+        T = np.ones((h, w), np.float32)
+        s = None
+        for d, tex, alpha in self.planes:
+            s = (d - t[2]) / dirs[2]
+            px = t[0] + s * dirs[0]
+            py = t[1] + s * dirs[1]
+            hx, hy = self._plane_half_extent(d)
+            u = (px + hx) / (2 * hx) * (tex.shape[1] - 1)
+            v = (py + hy) / (2 * hy) * (tex.shape[0] - 1)
+            inside = (u >= 0) & (u < tex.shape[1]) & (v >= 0) & (v < tex.shape[0])
+            a = self._bilinear(alpha, u, v) * inside
+            if self.spec.binary_alpha:
+                a = (a > 0.5).astype(np.float32)
+            depth += T * a * s.astype(np.float32)
+            T = T * (1 - a)
+        depth += T * s.astype(np.float32)  # the last plane fills the rest
+        return depth
+
     def __len__(self):
         return len(self.i_render)
 

@@ -16,10 +16,12 @@ from __future__ import annotations
 import json
 import os
 import time
+import warnings
 from typing import Optional
 
 import numpy as np
 import torch
+from PIL import Image
 
 from ..config import GGRtConfig
 from ..data.datasets import collate_batch
@@ -28,6 +30,7 @@ from ..geometry.se3 import relative_to_source_c2w
 from ..losses.photometric import photometric_decay_loss
 from ..models.ggrt import GGRtModel
 from ..training.trainer import prepare_batch
+from ..utils.visualization import plot_cameras
 from . import metrics
 
 
@@ -205,13 +208,22 @@ class Evaluator:
                          use_pred_pose: bool = True, refine_steps: int = 0) -> dict:
         """Per-view rows and their means over the finite values (NaN where
         none is: every view's aligned fit gated); with `out_dir`,
-        results.json with non-finite floats written as null."""
+        results.json with non-finite floats written as null, and, where they
+        can be made, each view's prediction as pred_{i:04d}.png and the last
+        view's cameras as poses_pred_vs_gt.png (`plot_poses`)."""
         rows = []
         n = len(dataset) if limit is None else min(limit, len(dataset))
         for i in range(n):
             row = self.evaluate_view(collate_batch(dataset[i]), use_pred_pose=use_pred_pose,
                                      refine_steps=refine_steps)
             rows.append({k: v for k, v in row.items() if not isinstance(v, np.ndarray) and v is not None})
+            if out_dir:
+                os.makedirs(out_dir, exist_ok=True)
+                try:
+                    img8 = (np.clip(row["pred"].transpose(1, 2, 0), 0, 1) * 255).astype(np.uint8)
+                    Image.fromarray(img8).save(os.path.join(out_dir, f"pred_{i:04d}.png"))
+                except Exception as e:  # the image is best-effort, as in the JAX package
+                    warnings.warn(f"pred_{i:04d}.png not written: {e!r}")
 
         summary = {}
         for key in rows[0]:
@@ -228,4 +240,20 @@ class Evaluator:
             os.makedirs(out_dir, exist_ok=True)
             with open(os.path.join(out_dir, "results.json"), "w") as f:
                 json.dump(_no_nan({"summary": summary, "per_view": rows}), f, indent=2)
+            try:
+                self.plot_poses(collate_batch(dataset[n - 1]), os.path.join(out_dir, "poses_pred_vs_gt.png"))
+            except Exception as e:  # best-effort, as in the JAX package: matplotlib may be absent
+                warnings.warn(f"poses_pred_vs_gt.png not written: {e!r}")
         return summary
+
+    def plot_poses(self, batch_raw: dict, path: str):
+        """Predicted against GT source-camera wireframes (the reference's
+        visdom pose view, eval_ggrt.py:253,279), written to `path` with
+        matplotlib: IPO-Net's final relative poses, unrefined, placed from
+        the target camera, beside the dataset's context cameras."""
+        batch = self._prepare_batch(batch_raw)
+        _, rel_poses = self._pose(batch)
+        nv = batch["src_cameras"].shape[1]
+        target_pose = batch["camera"][0, -16:].reshape(4, 4).expand(nv, 4, 4)
+        pred = relative_to_source_c2w(target_pose, rel_poses[:, -1, :])
+        return plot_cameras(pred.cpu().numpy(), path, gt_c2ws=batch["context"]["extrinsics"][0].cpu().numpy())

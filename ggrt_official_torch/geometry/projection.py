@@ -35,6 +35,10 @@ def transform_cam2world(homogeneous: torch.Tensor, extrinsics: torch.Tensor) -> 
     return transform_rigid(homogeneous, extrinsics)
 
 
+def transform_world2cam(homogeneous: torch.Tensor, extrinsics: torch.Tensor) -> torch.Tensor:
+    return transform_rigid(homogeneous, invert_se3(extrinsics))
+
+
 def invert_se3(T: torch.Tensor) -> torch.Tensor:
     """Closed-form inverse of an SE(3) matrix (..., 4, 4)."""
     R = T[..., :3, :3]
@@ -72,6 +76,18 @@ def project_camera_space(
     points = torch.nan_to_num(points, posinf=infinity, neginf=-infinity)
     points = torch.einsum("...ij,...j->...i", intrinsics, points)
     return points[..., :-1]
+
+
+def project(
+    points: torch.Tensor,
+    extrinsics: torch.Tensor,
+    intrinsics: torch.Tensor,
+    epsilon: float = _F32_EPS,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """World points -> normalized image xy + in-front-of-camera mask."""
+    points = transform_world2cam(homogenize_points(points), extrinsics)[..., :-1]
+    in_front = points[..., -1] >= 0
+    return project_camera_space(points, intrinsics, epsilon=epsilon), in_front
 
 
 def unproject(coordinates: torch.Tensor, z: torch.Tensor, intrinsics: torch.Tensor) -> torch.Tensor:

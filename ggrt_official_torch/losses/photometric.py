@@ -120,3 +120,14 @@ def photometric_decay_loss(
         metrics["smoothness_loss"] = smooth
         loss = loss + smooth
     return {"loss": loss, "metrics": metrics}
+
+
+class MultiViewPhotometricDecayLoss:
+    """Thin class around photometric_decay_loss, the reference's API: the
+    keyword settings are given once, the tensors at each call."""
+
+    def __init__(self, **kwargs):
+        self.kwargs = kwargs
+
+    def __call__(self, image, ref_imgs, inv_depths, K, ref_Ks, poses):
+        return photometric_decay_loss(image, ref_imgs, inv_depths, K, ref_Ks, poses, **self.kwargs)

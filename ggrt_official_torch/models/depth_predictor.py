@@ -39,12 +39,17 @@ def gather_discrete_topk(pdf: torch.Tensor, num_samples: int):
 
 
 class DepthPredictorMonocular(nn.Module):
+    """While `capture` holds a list, each call appends its detached depth
+    PDF (b, v, r, srf, s) to it (the JAX package's "depth_pdf" sow tap);
+    it is None otherwise."""
+
     def __init__(self, d_in: int, num_samples: int, num_surfaces: int, use_transmittance: bool):
         super().__init__()
         self.num_samples = num_samples
         self.num_surfaces = num_surfaces
         self.use_transmittance = use_transmittance
         self.projection = nn.Sequential(nn.ReLU(), nn.Linear(d_in, 2 * num_samples * num_surfaces))
+        self.capture: Optional[list] = None
 
     def forward(
         self,
@@ -63,6 +68,8 @@ class DepthPredictorMonocular(nn.Module):
         x = x.reshape(*x.shape[:-1], s, self.num_surfaces, 2)
         pdf = torch.softmax(x[..., 0].transpose(-1, -2), dim=-1)  # (b, v, r, srf, s)
         offset = torch.sigmoid(x[..., 1].transpose(-1, -2))
+        if self.capture is not None:
+            self.capture.append(pdf.detach())
 
         if deterministic:
             index, pdf_i = gather_discrete_topk(pdf, gaussians_per_pixel)

@@ -17,16 +17,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..constants import linspace
 from ..geometry.se3 import se3_exp
 from ..rendering.volume import cumprod_positive
-
-
-def linspace(start, stop, num: int, device=None) -> torch.Tensor:
-    """jnp.linspace's float32 arithmetic: start·(1 - t) + stop·t at t = i/(num-1),
-    the last sample `stop` itself."""
-    t = torch.arange(num - 1, dtype=torch.float32, device=device) / (num - 1)
-    out = start * (1 - t) + stop * t
-    return torch.cat([out, torch.full((1,), stop, dtype=torch.float32, device=device)])
 
 
 def positional_encoding(x: torch.Tensor, num_freqs: int) -> torch.Tensor:
@@ -111,7 +104,9 @@ def render_nerf_rays(apply_fn, rays_o, rays_d, near: float, far: float, n_sample
     """The stratified-sampling renderer of the NeRF/BARF path. With
     `uniforms` (r, n_samples) each sample is jittered in its interval (the
     JAX package draws them from its key there); without, the samples sit on
-    the linspace."""
+    jnp.linspace(near, far, n_samples)'s grid (`constants.linspace`: the same
+    ends, one sample at `near` when n_samples is 1, and within two float32
+    spacings of JAX's entries between them)."""
     r = rays_o.shape[0]
     t = linspace(near, far, n_samples, device=rays_o.device)
     z = t.expand(r, n_samples)

@@ -43,7 +43,12 @@ class PositionalEncoding(nn.Module):
 
 
 class Attention(nn.Module):
-    """Multi-head attention; cross-attention when `selfatt=False`."""
+    """Multi-head attention; cross-attention when `selfatt=False`.
+
+    While `capture` holds a list, each call appends its detached softmax
+    weights (b, heads, n, m) to it (the JAX package's "attn" sow tap;
+    utils/encoder_visualizer.capture_intermediates sets it). It is None
+    otherwise, and the call does nothing more."""
 
     def __init__(self, dim: int, heads: int = 8, dim_head: int = 64,
                  selfatt: bool = True, kv_dim: Optional[int] = None):
@@ -60,6 +65,7 @@ class Attention(nn.Module):
         self.to_out = None
         if not (heads == 1 and dim_head == dim):
             self.to_out = nn.Sequential(nn.Linear(inner, dim))
+        self.capture: Optional[list] = None
 
     def forward(self, x: torch.Tensor, z: Optional[torch.Tensor] = None) -> torch.Tensor:
         if self.selfatt:
@@ -75,6 +81,8 @@ class Attention(nn.Module):
         q, k, v = map(split_heads, (q, k, v))
         dots = torch.matmul(q, k.transpose(-1, -2)) * (self.dim_head**-0.5)
         attn = torch.softmax(dots, dim=-1)
+        if self.capture is not None:
+            self.capture.append(attn.detach())
         out = torch.matmul(attn, v)
         b, h, n, d = out.shape
         out = out.transpose(1, 2).reshape(b, n, h * d)

@@ -27,6 +27,10 @@ SH_C4 = (2.5033429417967046, -1.7701307697799304, 0.9461746957575601,
          0.47308734787878004, -1.7701307697799304, 0.6258357354491761)
 
 
+def num_sh_coeffs(degree: int) -> int:
+    return (degree + 1) ** 2
+
+
 def eval_sh_basis(directions: torch.Tensor, degree: int) -> torch.Tensor:
     """Real SH basis along unit directions (..., 3) -> (..., (degree+1)^2)."""
     if degree > 4:

@@ -14,6 +14,7 @@ from typing import Callable, Optional
 
 import torch
 
+from ..constants import linspace
 from .projector import project_and_gather
 
 
@@ -51,8 +52,9 @@ def _uniform(shape, like: torch.Tensor, uniforms, generator):
 def sample_pdf(bins, weights, n_samples, det=False, uniforms=None, generator=None):
     """Inverse-CDF importance sampling (the reference's render_ray.py:25-73).
 
-    bins (r, m+1), weights (r, m) -> samples (r, n_samples). Without `det`
-    the samples are drawn at `uniforms` (r, n_samples), or from `generator`.
+    bins (r, m+1), weights (r, m) -> samples (r, n_samples). With `det` the
+    samples are drawn at jnp.linspace(0, 1, n_samples) (a single one at 0);
+    without, at `uniforms` (r, n_samples), or from `generator`.
     """
     r, m = weights.shape
     weights = weights + 1e-5
@@ -61,7 +63,7 @@ def sample_pdf(bins, weights, n_samples, det=False, uniforms=None, generator=Non
     cdf = torch.cat([torch.zeros_like(cdf[:, :1]), cdf], dim=-1)  # (r, m+1)
 
     if det:
-        u = (torch.arange(n_samples, dtype=weights.dtype, device=weights.device) / (n_samples - 1)).expand(r, n_samples)
+        u = linspace(0.0, 1.0, n_samples, dtype=weights.dtype, device=weights.device).expand(r, n_samples)
     else:
         u = _uniform((r, n_samples), weights, uniforms, generator)
 

@@ -23,7 +23,7 @@ import argparse
 import numpy as np
 import torch
 
-from ..models.nerf import linspace
+from ..constants import linspace
 from ..ops.cuda_kernel import LONG, PTR, CudaKernel, check_tensors
 
 

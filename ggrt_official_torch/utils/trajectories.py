@@ -13,6 +13,7 @@ import math
 import numpy as np
 import torch
 
+from ..constants import linspace
 from ..geometry.se3 import so3_exp, so3_log
 
 
@@ -69,5 +70,5 @@ def spiral_path(c2w_avg: np.ndarray, up: np.ndarray, rads: np.ndarray, focal: fl
 
 def cosine_ease(n_frames: int, device=None) -> torch.Tensor:
     """The reference's smooth time parameterization (pixelsplat.py:214-215)."""
-    t = torch.linspace(0, 1, n_frames, device=device)
+    t = linspace(0.0, 1.0, n_frames, device=device)
     return (torch.cos(math.pi * (t + 1)) + 1) / 2

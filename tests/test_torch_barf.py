@@ -156,14 +156,37 @@ def test_render_nerf_rays(jx, jitter):
 
 
 def test_linspace_is_jax():
-    """The renderer's linspace is jnp.linspace's float32 arithmetic,
-    start·(1 - t) + stop·t at t = i/(n-1): within two float32 spacings of
-    max(|start|, |stop|) of it (XLA may take t as i·(1/(n-1)) and fuse the
-    sum into an FMA); both ends exact."""
-    for a, b, n in ((1.0, 4.0, 16), (-6.0, 0.0, 65536), (1e-4, 1.0, 1024), (2.0, 6.0, 64)):
+    """The renderer's linspace (constants.linspace) is jnp.linspace's float32
+    arithmetic, start·(1 - t) + stop·t at t = i/(n-1): within two float32
+    spacings of max(|start|, |stop|) of it (XLA may take t as i·(1/(n-1))
+    and fuse the sum into an FMA); both ends exact, and [start] at n = 1."""
+    cases = [(1.0, 4.0, n) for n in (1, 2, 7, 64, 1000)] + [(0.0, 1.0, n) for n in (1, 2, 7, 64, 1000)]
+    for a, b, n in cases + [(1.0, 4.0, 16), (-6.0, 0.0, 65536), (1e-4, 1.0, 1024), (2.0, 6.0, 64)]:
         got, want = tnerf.linspace(a, b, n).numpy(), np.asarray(jnp.linspace(a, b, n))
         np.testing.assert_allclose(got, want, rtol=0, atol=2 * np.spacing(np.float32(max(abs(a), abs(b)))))
         assert (got[0], got[-1]) == (want[0], want[-1])
+
+
+def test_render_nerf_rays_one_sample_at_near(jx):
+    """n_samples = 1: the one sample sits at `near`, as jnp.linspace(near,
+    far, 1) = [near] puts it (not at `far`); rgb, depth and weights against
+    JAX's at rtol 1e-5, atol 1e-5."""
+    params, ro, rd = jx["render"][:3]
+    jmodel = jnerf.BARFModel(num_cameras=2, depth=3, width=16, num_freqs_xyz=3)
+    want = jax.jit(lambda p: jnerf.render_nerf_rays(lambda a, b: jmodel.apply(p, a, b, 0.5), ro, rd,
+                                                     1.0, 4.0, 1))(params)
+    model = tnerf.BARFModel(num_cameras=2, depth=3, width=16, num_freqs_xyz=3)
+    model.load_state_dict(weights.barf_params_from_jax(jax.tree_util.tree_map(np.asarray, params), depth=3))
+    seen = []
+
+    def apply(a, b):
+        seen.append(a)
+        return model(a, b, 0.5)
+
+    got = tnerf.render_nerf_rays(apply, t(ro), t(rd), 1.0, 4.0, 1)
+    close(seen[0], (ro + rd)[:, None], rtol=0, atol=1e-7)
+    for k in ("rgb", "depth", "weights"):
+        close(got[k], want[k], rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("which", ["nerf", "barf"])

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
+from PIL import Image
 
 import __graft_entry__ as graft
 from ggrt_official_tpu.data import datasets as jds
@@ -365,7 +366,8 @@ def eval_case():
     pcfg = port_cfg(cfg)
     tm = tggrt.GGRtModel(pcfg, device="cpu")
     tm.load_state_dict(weights.ggrt_params_from_jax(jax.tree_util.tree_map(np.asarray, params), pcfg))
-    return dict(cfg=pcfg, model=tm, ex=dataset_example(tds), rel=rel, runs=runs)
+    jev._pose, jev._refine = ipo_pose, refine
+    return dict(cfg=pcfg, model=tm, ex=dataset_example(tds), rel=rel, runs=runs, jev=jev)
 
 
 def port_evaluator(case, refine_depth_source="field", override=True, rounds=1):
@@ -575,6 +577,46 @@ def test_evaluate_dataset_results_json(eval_case, tmp_path, monkeypatch):
                 close(v, np.mean(vals), rtol=1e-12, err_msg=k)
     assert math.isnan(summary["R_error_mean"]) and res["summary"]["R_error_mean"] is None
     assert summary["rendered_empty"] is False
+
+
+def test_evaluate_dataset_writes_images(eval_case, tmp_path, monkeypatch):
+    """With `out_dir`, both Evaluators write pred_0000.png and
+    poses_pred_vs_gt.png beside results.json (the first test view, the
+    dataset's cameras for the render). Decoded, each side's prediction is
+    its own render as 8-bit (clip, ×255, truncated), bit for bit; the two
+    renders differ by the encoder's float32 triangulation noise
+    (test_torch_slice.py::test_gaussians_match), here a mean of less than
+    0.1 level. The camera plot, drawn by the same matplotlib from poses
+    that agree to float rounding, equals JAX's on at least 99% of its
+    pixels."""
+    for cls in (tharness.Evaluator, JEvaluator):
+        monkeypatch.setattr(cls, "time_render", lambda self, b, iters=20: 1.0)
+    kw = dict(n_views=8, image_size=(32, 64))
+    jdir, tdir = tmp_path / "jax", tmp_path / "port"
+    views = {}
+    jev = eval_case["jev"]
+    ev = port_evaluator(eval_case, override=False)
+    for name, evaluator in (("jax", jev), ("port", ev)):
+        inner = evaluator.evaluate_view
+        monkeypatch.setattr(evaluator, "evaluate_view",
+                            lambda *a, inner=inner, name=name, **k: views.setdefault(name, inner(*a, **k)))
+    with pltpu.force_tpu_interpret_mode():
+        jev.evaluate_dataset(jds.SyntheticPlanesDataset(jds.SyntheticSceneSpec(**kw), mode="test", num_source_views=3),
+                             out_dir=str(jdir), limit=1, use_pred_pose=False)
+    ev.evaluate_dataset(tds.SyntheticPlanesDataset(tds.SyntheticSceneSpec(**kw), mode="test", num_source_views=3),
+                        out_dir=str(tdir), limit=1, use_pred_pose=False)
+    decoded = {}
+    for name, d in (("jax", jdir), ("port", tdir)):
+        for f in ("pred_0000.png", "poses_pred_vs_gt.png", "results.json"):
+            assert (d / f).exists(), (name, f)
+        decoded[name] = np.asarray(Image.open(d / "pred_0000.png"))
+        own = (np.clip(np.asarray(views[name]["pred"]).transpose(1, 2, 0), 0, 1) * 255).astype(np.uint8)
+        np.testing.assert_array_equal(decoded[name], own, err_msg=name)
+    assert decoded["port"].shape == (32, 64, 3)
+    assert np.abs(decoded["port"].astype(int) - decoded["jax"]).mean() < 0.1
+    got, want = (np.asarray(Image.open(d / "poses_pred_vs_gt.png")) for d in (tdir, jdir))
+    assert got.shape == want.shape and got.ndim == 3
+    assert (got == want).all(-1).mean() >= 0.99
 
 
 def test_evaluator_reports_lpips_with_weights(eval_case, tmp_path, monkeypatch):

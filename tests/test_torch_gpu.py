@@ -854,3 +854,71 @@ def test_resunet_on_card_matches_cpu(cuda):
     for g, w in zip(got, want):
         assert g.shape == w.shape and g.is_cuda
         torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4)
+
+
+def full_width_request(cuda):
+    """A GGRtModel at pretrain_config() widths on the card and a prepared
+    64x96 request with 5 source views."""
+    from ggrt_official_torch.config import pretrain_config
+    from ggrt_official_torch.data import datasets
+    from ggrt_official_torch.data.shims import get_data_shim
+    from ggrt_official_torch.models.ggrt import GGRtModel
+    from ggrt_official_torch.training.trainer import prepare_batch
+
+    cfg = pretrain_config()
+    model = GGRtModel(cfg, device=cuda).eval()
+    ds = datasets.SyntheticPlanesDataset(datasets.SyntheticSceneSpec(n_views=8, image_size=(64, 96)),
+                                         num_source_views=cfg.train.num_source_views)
+    return model, prepare_batch(datasets.collate_batch(ds[0]), get_data_shim(cfg.encoder), cuda)
+
+
+def test_request_with_capture_off_waits_for_nothing(cuda):
+    """After the encoder's capture taps were on and off again, a whole
+    full-width request queues all its work without a host sync (the taps
+    cost one attribute test while off), and renders what it rendered with
+    them on, bit for bit."""
+    from ggrt_official_torch.utils.encoder_visualizer import capture_intermediates
+
+    model, batch = full_width_request(cuda)
+    with torch.inference_mode():
+        with capture_intermediates(model.gaussian) as taps:
+            on, _ = model.gaussian(batch, 0, deterministic=True)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            off, _ = model.gaussian(batch, 0, deterministic=True)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert taps["attn"] and taps["depth_pdf"] and all(x.is_cuda for x in taps["attn"])
+    assert torch.equal(on["rgb"], off["rgb"])
+
+
+def test_dump_rgb_is_a_plain_request(cuda, tmp_path):
+    """dump_encoder_visualizations on the card at pretrain_config() widths:
+    its rendered_rgb is a plain request's rgb bit for bit, its images are
+    finite, and it writes its PNGs."""
+    from ggrt_official_torch.utils.encoder_visualizer import dump_encoder_visualizations
+
+    model, batch = full_width_request(cuda)
+    with torch.inference_mode():
+        plain, _ = model.gaussian(batch, 0, deterministic=True)
+    dumps = dump_encoder_visualizations(model, batch, 0, (64, 96), out_dir=str(tmp_path))
+    np.testing.assert_array_equal(dumps["rendered_rgb"], plain["rgb"].cpu().numpy())
+    assert any(k.startswith("attention_") for k in dumps) and any(k.startswith("depth_pdf_") for k in dumps)
+    assert all(np.isfinite(v).all() for v in dumps.values())
+    assert sorted(p.name for p in tmp_path.iterdir()) == sorted(f"{k}.png" for k in dumps)
+
+
+def test_visualization_on_card_matches_cpu(cuda):
+    """apply_color_map, draw_lines, hcat and add_label on card tensors stay
+    on the card and equal the same calls on the CPU within 1e-6."""
+    from ggrt_official_torch.visualization import add_label, apply_color_map, draw_lines, hcat
+
+    gen = torch.Generator().manual_seed(0)
+    depth, img = torch.rand(40, 56, generator=gen), torch.rand(3, 40, 56, generator=gen)
+    start, end = torch.rand(6, 2, generator=gen) * 56, torch.rand(6, 2, generator=gen) * 40
+    for fn in (lambda d, i: apply_color_map(d, "turbo"), lambda d, i: draw_lines(i, start, end, (1.0, 0.2, 0.1), 2.0),
+               lambda d, i: hcat(i, d[None].expand(3, -1, -1)), lambda d, i: add_label(i, "card")):
+        got, want = fn(depth.to(cuda), img.to(cuda)), fn(depth, img)
+        assert got.is_cuda and bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-6)

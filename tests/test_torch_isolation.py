@@ -45,6 +45,10 @@ def test_walk_sees_the_package():
                 "sfm/pipeline.py", "scripts/extract_relative_poses.py", "rendering/rays.py",
                 "rendering/projector.py", "rendering/volume.py", "models/ibrnet.py", "models/feature_unet.py",
                 "models/dbarf.py", "models/nerf.py", "training/barf_trainer.py", "scripts/eval_dbarf.py",
-                "tools/diag_exp_precision.py"):
+                "tools/diag_exp_precision.py", "native.py", "utils/benchmarker.py", "utils/step_tracker.py",
+                "utils/visualization.py", "utils/encoder_visualizer.py", "visualization/__init__.py",
+                "visualization/annotation.py", "visualization/cameras.py", "visualization/color_map.py",
+                "visualization/color_tables.py", "visualization/drawing.py", "visualization/feature_visualizer.py",
+                "visualization/layout.py"):
         assert f"ggrt_official_torch/{sub}" in names, sub
     assert "jax" in imported_roots(ROOT / "ggrt_official_tpu" / "ops" / "rasterizer" / "api.py")

@@ -254,6 +254,19 @@ def test_sample_pdf(jx):
     assert drawn.shape == (bins.shape[0], N_IMPORTANCE) and bool(((drawn >= 1) & (drawn <= 5)).all())
 
 
+def test_sample_pdf_one_deterministic_sample():
+    """det with n_samples = 1 on 4 rays of 8 bins: jnp.linspace(0, 1, 1) =
+    [0] puts the one sample at the first bin's edge where JAX's does, finite
+    and within 1e-6 (u = arange(1)/0 would make it NaN)."""
+    rng = np.random.RandomState(3)
+    bins = np.sort(rng.uniform(1.0, 5.0, (4, 9)), axis=-1).astype(np.float32)
+    w = rng.uniform(0.05, 1.0, (4, 8)).astype(np.float32)
+    want = np.asarray(jax.jit(jvol.sample_pdf, static_argnums=(3, 4))(None, bins, w, 1, True))
+    got = tvol.sample_pdf(t(bins), t(w), 1, det=True)
+    assert got.shape == (4, 1) and bool(torch.isfinite(got).all())
+    close(got, want, rtol=0, atol=1e-6)
+
+
 @pytest.mark.parametrize("inv", [False, True])
 @pytest.mark.parametrize("det", [False, True])
 def test_sample_along_camera_ray(jx, inv, det):
