@@ -40,7 +40,8 @@ Phases; each one that fails stops the run with a non-zero exit:
   6. raster: the rasterizer's own entry point as bench.py drives it, at
              its two scales: 320x448 with 860,160 Gaussians and 640x960
              with 3,686,400 (3 per pixel x 2 pairs, SH degree 4, drawn from
-             a seeded generator on the card to bench.py's distributions).
+             a seeded generator on the card to bench.py's distributions by
+             scripts/bench.py, whose gate and step this phase runs too).
              At each: K from choose_max_per_tile (45 dB, max_dup 8); at
              320x448 the bench's gate (a 64x128 render of the first 4096
              Gaussians, "cuda" against "tiled", both banked); the banked
@@ -203,17 +204,51 @@ Phases; each one that fails stops the run with a non-zero exit:
              blobs. (e) apply_color_map, draw_lines, hcat and add_label on
              the request's depth and image on the card against the CPU
              within 1e-6 (add_label by shape).
+ 18. convert, parallel, bench: (a) training/convert.py at
+             pretrain_config(): a reference-shaped checkpoint
+             ({'pose_learner': ..., 'gaussian': {'encoder.*': ...}}) from a
+             seed-0 GGRtModel, converted into a seed-1 model and loaded:
+             every tensor bit-equal, as many name-map rows as state_dict
+             keys; one request through each model, rgb bit-equal, 2
+             forward launches each. (b) parallel/ at world size 1 (NCCL, a
+             file:// store): make_mesh() is (1, 1); make_dp_train_step on a
+             GGRtTrainer at 320x448, 5 source views: a warm-up step at
+             step 1 (the Gaussian gradients non-zero), 2 timed 'joint'
+             steps of (2, 1, 1, 0) launches, 0 host syncs in one more; the
+             warm-up step's parameters and gradients against
+             train_iteration's from the same weights, example, uniforms and
+             step (bit-equal, or no further from them than a second
+             train_iteration run is), and two more train_iteration runs
+             under torch's deterministic algorithms, each by parameter
+             group, with the ops that have none and whether the step's
+             kernels repeat themselves;
+             render_tile_parallel("cuda") on bench.py's 320x448 scene equal
+             to api.render's image, its fwd+bwd finite with (1, 1, 1, 0)
+             launches; the first launch of each kernel in the converted
+             model's request, the warm-up step and the render relaunched on
+             its own arguments against its plain version, at phase 3's
+             tolerances; dryrun_multichip(1) in a spawned rank, its three
+             stages. (c) scripts/bench.py's main([]) in-process: its one
+             line parses, with bench.py's metric, a positive value, the
+             card's name, each scale's cap_policy equal to phase 6's (so
+             its records are those phase 6 holds against the plain
+             versions), every raster step (1, 1, 1, 1);
+             then one 320x448 step under torch.profiler: the five host ops
+             with the most self time, the launches and the host time
+             between them by the host event running through each gap.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or outside a checkout
 of the repository, it prints no result and exits non-zero.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -304,9 +339,25 @@ def check_compositors(fwd, bwd, rec, col, cnt, tile, gen):
 
     from ggrt_official_torch.ops.rasterizer import cuda_composite as cc
 
-    kern = fwd(rec, col, cnt, *tile)
+    mx, kern = check_fwd(fwd, rec, col, cnt, *tile)
+    acc, tfin, tst, nexec = kern
+    gout = torch.randn(acc.shape, generator=gen, device=acc.device)
+    gtfin = torch.randn(tfin.shape, generator=gen, device=acc.device)
+    mxb = check_bwd(bwd, rec, col, tst, nexec, tfin, gout, gtfin, *tile)
+    return mx, mxb, dict(nexec=nexec, tst=tst, tfin=tfin, gout=gout, gtfin=gtfin)
+
+
+def check_fwd(fwd, rec, col, cnt, tile_h, tile_w):
+    """The forward compositor kernel against its plain version: the images
+    and T by check_images, nexec equal on every tile. Returns the largest
+    disagreement and the kernel's outputs."""
+    import torch
+
+    from ggrt_official_torch.ops.rasterizer import cuda_composite as cc
+
+    kern = fwd(rec, col, cnt, tile_h, tile_w)
     torch.cuda.synchronize()
-    plain = cc.composite_records_plain(rec, col, cnt, *tile)
+    plain = cc.composite_records_plain(rec, col, cnt, tile_h, tile_w)
     print("  forward:")
     mx = max(check_images("acc", kern[0], plain[0]), check_images("tfin", kern[1], plain[1]))
     agree = int((kern[3] == plain[3]).sum())
@@ -314,15 +365,75 @@ def check_compositors(fwd, bwd, rec, col, cnt, tile, gen):
           f"{int(kern[3].min())}, max {int(kern[3].max())} of {rec.shape[2] // 128})")
     if agree != kern[3].numel():
         fail("nexec differs from the plain version's")
-    acc, tfin, tst, nexec = kern
-    gout = torch.randn(acc.shape, generator=gen, device=acc.device)
-    gtfin = torch.randn(tfin.shape, generator=gen, device=acc.device)
-    dk = bwd(rec, col, tst, nexec, tfin, gout, gtfin, *tile)
+    return mx, kern
+
+
+def check_bwd(bwd, *args):
+    """The backward compositor kernel against its plain version on its
+    arguments (records, colors, tst, nexec, tfin, gout, gtfin, tile_h,
+    tile_w), by check_grads; returns the largest disagreement."""
+    import torch
+
+    from ggrt_official_torch.ops.rasterizer import cuda_composite as cc
+
+    dk = bwd(*args)
     torch.cuda.synchronize()
-    dp = cc.composite_bwd_plain(rec, col, tst, nexec, tfin, gout, gtfin, *tile)
+    dp = cc.composite_bwd_plain(*args)
     print("  backward:")
-    mxb = max(check_grads("drec", dk[0], dp[0]), check_grads("dcol", dk[1], dp[1]))
-    return mx, mxb, dict(nexec=nexec, tst=tst, tfin=tfin, gout=gout, gtfin=gtfin)
+    return max(check_grads("drec", dk[0], dp[0]), check_grads("dcol", dk[1], dp[1]))
+
+
+@contextlib.contextmanager
+def first_calls(kernels):
+    """{kernel: a copy of the arguments of its first call} for the calls
+    made inside the block, to hold those launches against the plain
+    versions afterwards (and not count them)."""
+    import torch
+
+    seen, saved = {}, []
+    for k in kernels:
+        cls = type(k)
+
+        def wrapped(self, *args, _call=cls.__call__):
+            if self not in seen:
+                seen[self] = tuple(a.detach().clone() if torch.is_tensor(a) else a for a in args)
+            return _call(self, *args)
+
+        saved.append((cls, cls.__call__))
+        cls.__call__ = wrapped
+    try:
+        yield seen
+    finally:
+        for cls, call in saved:
+            cls.__call__ = call
+
+
+def check_calls(seen, kernels, what: str) -> tuple[dict, dict]:
+    """Each captured call (first_calls) relaunched and held against the
+    plain version, and launched twice more to see whether the kernel
+    repeats itself bit for bit; returns ({kernel name: largest
+    disagreement}, {kernel name: repeats})."""
+    import torch
+
+    fwd, bwd, seg = kernels[:3]
+    err, repeats = {}, {}
+    with torch.no_grad():
+        for k, args in seen.items():
+            name = k.source.stem
+            print(f" {what}, {name} on the path's own arguments:")
+            if k is fwd:
+                err[name] = check_fwd(fwd, *args)[0]
+            elif k is bwd:
+                err[name] = check_bwd(bwd, *args)
+            elif k is seg:
+                err[name] = check_segment_sum(seg, *args)
+            else:
+                continue
+            a, b = k(*args), k(*args)
+            a, b = (a,) if torch.is_tensor(a) else a, (b,) if torch.is_tensor(b) else b
+            repeats[name] = all(torch.equal(x, y) for x, y in zip(a, b))
+            print(f"  launched twice more: bit-equal {repeats[name]}")
+    return err, repeats
 
 
 def check_segment_sum(seg, ids, vals, g):
@@ -497,35 +608,6 @@ def make_request(seed: int, image_shape, n_views: int, num_source_views: int, sh
     return to_device(shim({"context": ex["context"], "target": ex["target"]}), device)
 
 
-def bench_inputs(image_shape, device, seed: int = 0, gpp: int = 3, pairs: int = 2):
-    """bench.py's scene (bench.py:29-54): gpp Gaussians per pixel for each of
-    `pairs` context pairs, uniform means in front of an identity camera,
-    pixel-scale isotropic covariances, SH degree 4, drawn from a seeded
-    generator on the card."""
-    import torch
-
-    h, w = image_shape
-    g = h * w * gpp * pairs
-    gen = torch.Generator(device=device).manual_seed(seed)
-
-    def uniform(shape, lo, hi):
-        return torch.rand(shape, generator=gen, device=device) * (hi - lo) + lo
-
-    means = torch.stack([uniform((1, g), -2.0, 2.0), uniform((1, g), -1.5, 1.5),
-                         uniform((1, g), 1.2, 8.0)], dim=-1)
-    scales = uniform((1, g, 3), 0.002, 0.02)
-    cov = torch.eye(3, device=device)[None, None] * scales[..., None] ** 2
-    sh = torch.randn((1, g, 3, 25), generator=gen, device=device) * 0.2
-    opa = uniform((1, g), 0.05, 0.9)
-    cams = dict(
-        extrinsics=torch.eye(4, device=device)[None],
-        intrinsics=torch.tensor([[[1.2, 0.0, 0.5], [0.0, 1.2, 0.5], [0.0, 0.0, 1.0]]], device=device),
-        near=torch.ones(1, device=device), far=torch.full((1,), 20.0, device=device),
-        background=torch.zeros(1, 3, device=device),
-    )
-    return cams, {"means": means, "covariances": cov, "sh_coeffs": sh, "opacities": opa}
-
-
 def banked_lists_work(st, K, n_valid) -> tuple[int, int, int]:
     """Least work of the banked gather-and-merge: (integer operations,
     bytes, run entries). The lists depend only on each (tile, slot)'s run
@@ -586,13 +668,14 @@ def raster_phase(kernels, tag: str, device: str = "cuda") -> dict:
     from ggrt_official_torch.ops.rasterizer import api, projection, tiling
     from ggrt_official_torch.ops.rasterizer import banked_gather as bg
     from ggrt_official_torch.ops.rasterizer import cuda_composite as cc
+    from ggrt_official_torch.scripts import bench
 
     dev = torch.device(device)
     gen = torch.Generator(device=dev).manual_seed(1)
     out = {}
     for image, n_steps in RASTER_SCALES:
         h, w = image
-        cams, leaves = bench_inputs(image, dev)
+        cams, leaves = bench.bench_inputs(image, dev)
         g = leaves["means"].shape[1]
         name = f"{h}x{w}"
         cam_args = lambda c: (c["extrinsics"], c["intrinsics"], c["near"], c["far"])
@@ -611,15 +694,10 @@ def raster_phase(kernels, tag: str, device: str = "cuda") -> dict:
             if image == (320, 448):
                 # bench.py's own gate (bench.py:121-135): the kernel compositor
                 # against the plain tiled one on a small scene, both banked.
-                small = [x[:, :4096] for x in leaves.values()]
-                img_k = api.render(*cam_args(cams), (64, 128), cams["background"], *small,
-                                   backend="cuda", **kw)
-                img_t = api.render(*cam_args(cams), (64, 128), cams["background"], *small,
-                                   backend="tiled", **kw)
-                mean, share, mx = image_errors(img_k, img_t)
+                mean, share, mx = bench.gate_errors(cams, leaves, kw)
                 print(f"  bench gate 64x128, 4096 Gaussians, cuda against tiled: mean abs "
                       f"{mean:.3e}, outlier share {share:.3e}, max abs {mx:.3e}")
-                if not (mean < 1e-4 and share < 2e-3):
+                if not (mean < bench.GATE_MEAN and share < bench.GATE_SHARE):
                     fail("the bench gate: the kernel compositor disagrees with the tiled one")
 
             # The kernel against its plain version on this scale's streams.
@@ -664,8 +742,8 @@ def raster_phase(kernels, tag: str, device: str = "cuda") -> dict:
             stats = tiling.binning_overflow_stats(pg, image, max_dup=8, max_per_tile=K)
             del flat, sort, ids_k, ids_p, ids, vals
 
-        step = raster_step(api, cams, leaves, image, kw)
-        finite = [step()]  # warm-up
+        step = bench.raster_step(cams, leaves, image, kw)
+        sums = [step()]  # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset(*kernels)
@@ -673,14 +751,14 @@ def raster_phase(kernels, tag: str, device: str = "cuda") -> dict:
         for _ in range(n_steps):
             before = counts(*kernels)
             t0 = time.perf_counter()
-            finite.append(step())
+            sums.append(step())
             torch.cuda.synchronize()
             each_ms.append((time.perf_counter() - t0) * 1e3)
             made.append(tuple(a - b for a, b in zip(counts(*kernels), before)))
         step_ms = sum(each_ms) / n_steps
         launches = counts(*kernels)
         peak = torch.cuda.max_memory_allocated() / 2**30
-        if not all(bool(f) for f in finite):
+        if not bool(torch.isfinite(torch.stack(sums)).all()):
             fail(f"raster {name}: a non-finite gradient")
         if any(m != RASTER_STEP_LAUNCHES for m in made):
             fail(f"raster {name}: launches per step (fwd, bwd, scatter, gather) {made}, "
@@ -691,29 +769,11 @@ def raster_phase(kernels, tag: str, device: str = "cuda") -> dict:
               f"{RASTER_STEP_LAUNCHES} per step {tag}")
         print(f"  overflow at K={K}: " + ", ".join(f"{k} {float(v):.6g}" for k, v in stats.items()),
               flush=True)
-        out[name] = dict(streams=st, K=K, n_valid=n_valid, pg=pg, step_ms=step_ms, each_ms=each_ms,
+        out[name] = dict(streams=st, K=K, policy=policy, n_valid=n_valid, pg=pg, step_ms=step_ms, each_ms=each_ms,
                          launches=launches, step=step, records=(rec, col, cnt), fwd_out=fo,
                          err={"banked_gather": err, "composite_fwd": mx, "composite_bwd": mxb,
                               "segment_sum": mxs})
     return out
-
-
-def raster_step(api, cams, leaves, image, kw):
-    """bench.py's step: gradients of mean(render**2) for means, covariances,
-    SH, opacities and extrinsics; returns whether all are finite (on the
-    card, unread)."""
-    import torch
-
-    params = [x.clone().requires_grad_(True) for x in (*leaves.values(), cams["extrinsics"])]
-
-    def step():
-        m, c, sh, o, e = params
-        img = api.render(e, cams["intrinsics"], cams["near"], cams["far"], image,
-                         cams["background"], m, c, sh, o, backend="cuda", **kw)
-        grads = torch.autograd.grad((img ** 2).mean(), params)
-        return torch.stack([torch.isfinite(x).all() for x in grads]).all()
-
-    return step
 
 
 def show_profile(prof, what: str, wall_ms: float, tag: str) -> float:
@@ -1052,9 +1112,10 @@ def cache_phase(kernels, tag: str, device="cuda", cfg=None, image=IMAGE) -> dict
     return out
 
 
-def joint_step_syncs(trainer, example):
-    """The host syncs of one 'joint' train step, counted by file:line of
-    the Python frame that made each (torch's sync debug mode, "warn")."""
+def step_syncs(fn):
+    """The host syncs of one call of `fn` (a train step), counted by
+    file:line of the Python frame that made each (torch's sync debug mode,
+    "warn")."""
     import collections
     import warnings
 
@@ -1065,7 +1126,7 @@ def joint_step_syncs(trainer, example):
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            trainer.train_iteration(example, "joint")
+            fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
@@ -1076,7 +1137,7 @@ def joint_step_syncs(trainer, example):
 
 def to_device_lines() -> set:
     """"file:line" of every line of training/trainer.py::_to_device, as
-    joint_step_syncs names them."""
+    step_syncs names them."""
     import inspect
 
     from ggrt_official_torch.training import trainer
@@ -1859,6 +1920,317 @@ def observability_phase(kernels, tag: str, root: Path, device="cuda", cfg=None, 
     return out
 
 
+def convert_phase(kernels, tag: str, device="cuda", cfg=None, image=IMAGE) -> dict:
+    """Phase 18(a): a reference-shaped checkpoint ({'pose_learner': ...,
+    'gaussian': {'encoder.*': ...}}) from a seed-0 GGRtModel's state_dict,
+    converted into a seed-1 model and loaded; then one request through
+    each model, the counts read around each, and the converted model's
+    forward launch held against the plain version on its own records."""
+    import torch
+
+    from ggrt_official_torch import config, weights
+    from ggrt_official_torch.data.shims import get_data_shim
+    from ggrt_official_torch.models.ggrt import GGRtModel
+    from ggrt_official_torch.training import convert
+
+    cfg = cfg or config.pretrain_config()
+    dev = torch.device(device)
+    src = GGRtModel(cfg, device=dev, generator=torch.Generator().manual_seed(0)).eval()
+    sd = src.state_dict()
+    ckpt = {part: {k.removeprefix(part + "."): v for k, v in sd.items() if k.startswith(part + ".")}
+            for part in ("pose_learner", "gaussian")}
+    dst = GGRtModel(cfg, device=dev, generator=torch.Generator().manual_seed(1)).eval()
+    differ_before = sum(not torch.equal(v, sd[k]) for k, v in dst.state_dict().items())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dst.load_state_dict(convert.convert_reference_checkpoint(ckpt, dst, encoder_cfg=cfg.encoder))
+    torch.cuda.synchronize()
+    convert_ms = (time.perf_counter() - t0) * 1e3
+    differ = [k for k, v in dst.state_dict().items() if not torch.equal(v, sd[k])]
+    rows = len(weights.depth_pose_net_name_map(8)) + len(weights.encoder_name_map(cfg.encoder))
+    req = make_request(0, image, 8, cfg.train.num_source_views, get_data_shim(cfg.encoder), dev)
+    made, rgb = [], []
+    with torch.inference_mode():
+        for m in (src, dst):
+            with first_calls(kernels) as seen:
+                before = counts(*kernels)
+                ret, _ = m.gaussian(req, 0, deterministic=True)
+                torch.cuda.synchronize()
+                made.append(tuple(a - b for a, b in zip(counts(*kernels), before)))
+            rgb.append(ret["rgb"])
+    print(f"convert: {len(sd)} state_dict keys, {rows} name-map rows; {differ_before} tensors differ "
+          f"between the seed-0 and seed-1 models, {len(differ)} after the conversion; convert + load "
+          f"{convert_ms:.1f} ms; requests through both models: rgb {tuple(rgb[0].shape)} "
+          f"{'bit-equal' if torch.equal(rgb[0], rgb[1]) else 'DIFFERENT'}, launches {made} {tag}", flush=True)
+    err, _ = check_calls(seen, kernels, "convert")
+    return dict(keys=len(sd), rows=rows, differ_before=differ_before, differ=differ, made=made,
+                rgb_equal=bool(torch.equal(rgb[0], rgb[1])), finite=bool(torch.isfinite(rgb[0]).all()), err=err)
+
+
+def parallel_phase(kernels, tag: str, device="cuda", cfg=None, image=IMAGE, n_steps: int = 2) -> dict:
+    """Phase 18(b): the parallel paths at world size 1 (NCCL on the card,
+    gloo on the CPU; a file:// store). make_mesh(); make_dp_train_step on a
+    GGRtTrainer's model: a warm-up step at step 1 (where the joint loss
+    weighs the Gaussian term), `n_steps` timed 'joint' steps with their
+    launches, one more under the sync debug mode; the warm-up step against
+    GGRtTrainer.train_iteration from the same weights, example, uniforms
+    and step, run twice (the card's own run-to-run difference), and twice
+    more under torch's deterministic algorithms, each by parameter group;
+    render_tile_parallel("cuda") on bench.py's scene against api.render,
+    forward and backward; the first launch of each kernel in the warm-up
+    step and in the render held against its plain version on its own
+    arguments; then dryrun_multichip(1) in a spawned rank."""
+    import datetime
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from ggrt_official_torch import config
+    from ggrt_official_torch.ops.rasterizer import api
+    from ggrt_official_torch.parallel import dryrun, make_mesh
+    from ggrt_official_torch.parallel.sharded_step import local_example, make_dp_train_step, replicate
+    from ggrt_official_torch.parallel.tile_parallel import render_tile_parallel
+    from ggrt_official_torch.scripts import bench
+    from ggrt_official_torch.training.state import TrainState
+    from ggrt_official_torch.training.trainer import GGRtTrainer, make_pretrain_loss_fn
+
+    cfg = cfg or config.pretrain_config()
+    dev = torch.device(device)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo", init_method=f"file://{tmp}/store",
+                                world_size=1, rank=0, timeout=datetime.timedelta(seconds=60))
+        try:
+            mesh = make_mesh(device_type=dev.type)
+            out["mesh"] = tuple(mesh.shape)
+            trainer = GGRtTrainer(cfg, device=dev)
+            trainer.init_full()
+            model = trainer.model
+            snapshot = {k: v.clone() for k, v in model.state_dict().items()}
+            views = scene_views(image, range(2 + n_steps), "train", cfg.train.num_source_views)
+            batches = [local_example([trainer.prepare_batch(v)], mesh) for v in views]
+            uniforms = [trainer.draw_uniforms(b) for b in batches]
+            replicate(model, mesh)
+            step = make_dp_train_step(cfg, mesh, make_pretrain_loss_fn(model, cfg))
+
+            def taken():
+                """(parameters, the step's averaged and clipped gradients)."""
+                return ({k: p.detach().clone() for k, p in model.named_parameters()},
+                        {k: p.grad.clone() for k, p in model.named_parameters() if p.grad is not None})
+
+            # The warm-up, compared below. At step 0 the joint loss gives the
+            # Gaussian term no weight and every Gaussian gradient is zero.
+            trainer.state.step = 1
+            with first_calls(kernels) as seen:
+                aux = step(trainer.state, model, batches[0], uniforms[0])
+                torch.cuda.synchronize()
+            dp_params, dp_grads = taken()
+            out["err"], out["repeats"] = check_calls(seen, kernels, "parallel: dp step")
+            del seen
+            out["warm_loss"] = float(aux["loss_all"])
+            made, step_ms, losses = [], [], []
+            for i in range(1, 1 + n_steps):
+                before = counts(*kernels)
+                t0 = time.perf_counter()
+                aux = step(trainer.state, model, batches[i], uniforms[i])
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                made.append(tuple(a - b for a, b in zip(counts(*kernels), before)))
+                losses.append(float(aux["loss_all"]))
+            out.update(made=made, step_ms=step_ms, losses=losses)
+            out["syncs"] = step_syncs(lambda: step(trainer.state, model, batches[-1], uniforms[-1]))
+
+            def single():
+                model.load_state_dict(snapshot)
+                trainer.state = TrainState(cfg, model)
+                trainer.state.step = 1
+                trainer.train_iteration(views[0], "joint", uniforms=uniforms[0])
+                torch.cuda.synchronize()
+                return taken()
+
+            ref, again = single(), single()
+            # torch's deterministic algorithms (cuDNN's among them); the ops
+            # that have none warn, and are listed.
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    det, det_again = single(), single()
+            finally:
+                torch.use_deterministic_algorithms(False)
+            out["nondeterministic_ops"] = sorted({str(w.message).split(" does not have")[0] for w in caught
+                                                  if "deterministic" in str(w.message)})
+
+            def compare(a, b):
+                """{part: (bit-equal, max abs difference, relative L2
+                difference)} over all tensors and per parameter group."""
+                res = {}
+                for part in ("all", "pose_learner", "gaussian"):
+                    ks = [k for k in b if part == "all" or k.startswith(part + ".")]
+                    diff = max(float((a[k] - b[k]).abs().max()) for k in ks)
+                    num = math.sqrt(sum(float(((a[k] - b[k]).double() ** 2).sum()) for k in ks))
+                    den = math.sqrt(sum(float((b[k].double() ** 2).sum()) for k in ks))
+                    res[part] = (all(torch.equal(a[k], b[k]) for k in ks), diff, num / max(den, 1e-30))
+                return res
+
+            out["gauss_grad_max"] = max(float(g.abs().max()) for k, g in dp_grads.items() if k.startswith("gaussian."))
+            pairs = (("dp step against train_iteration", dp_params, dp_grads, ref),
+                     ("train_iteration run twice", *again, ref),
+                     ("train_iteration twice, deterministic algorithms", *det_again, det))
+            for what in ("params", "grads"):
+                i = 0 if what == "params" else 1
+                out[what] = tuple(compare(p if i == 0 else g, r[i]) for _, p, g, r in pairs)
+            print(f"parallel: mesh {out['mesh']}; dp step at world size 1: warm-up loss (step 1) "
+                  f"{out['warm_loss']:.6f}, largest Gaussian gradient {out['gauss_grad_max']:.3e}, steps "
+                  f"{', '.join(f'{x:.1f}' for x in step_ms)} ms, losses {losses}, launches {made}, host "
+                  f"syncs {sum(out['syncs'].values())} {tag}", flush=True)
+            for j, (name, *_) in enumerate(pairs):
+                print(f"  {name} (bit-equal, max abs, rel L2): " + "; ".join(
+                    f"{what} {part} {out[what][j][part]}" for what in ("params", "grads")
+                    for part in ("pose_learner", "gaussian")), flush=True)
+            print(f"  ops without a deterministic implementation: {out['nondeterministic_ops']}; the step's "
+                  f"kernels repeat themselves bit for bit: {out['repeats']}", flush=True)
+            del trainer, model, snapshot, batches, uniforms, dp_params, dp_grads, ref, again, det, det_again, step
+            torch.cuda.empty_cache()
+
+            cams, leaves = bench.bench_inputs(image, dev)
+            kw = dict(max_dup=8, max_per_tile=1024)
+            params = [x[0].clone().requires_grad_(True) for x in leaves.values()]
+            cam = [cams[k][0] for k in ("extrinsics", "intrinsics", "near", "far")]
+            with first_calls(kernels) as seen:
+                before = counts(*kernels)
+                t0 = time.perf_counter()
+                img = render_tile_parallel(mesh, *params, *cam, image, cams["background"][0], backend="cuda",
+                                           **kw)
+                grads = torch.autograd.grad((img ** 2).mean(), params)
+                torch.cuda.synchronize()
+                out["tp_ms"] = (time.perf_counter() - t0) * 1e3
+                out["tp_made"] = tuple(a - b for a, b in zip(counts(*kernels), before))
+            with torch.no_grad():
+                ref_img = api.render(cams["extrinsics"], cams["intrinsics"], cams["near"], cams["far"], image,
+                                     cams["background"], *leaves.values(), backend="cuda", **kw)[0]
+            out["tp_equal"] = bool(torch.equal(img.detach(), ref_img))
+            out["tp_err"] = float((img.detach() - ref_img).abs().max())
+            out["tp_grads_finite"] = all(bool(torch.isfinite(g).all()) for g in grads)
+            print(f"parallel: render_tile_parallel(cuda) at {image[0]}x{image[1]}, "
+                  f"{leaves['means'].shape[1]} Gaussians, tp 1: against api.render "
+                  f"{'bit-equal' if out['tp_equal'] else 'DIFFERENT'} (max abs {out['tp_err']!r}); fwd+bwd "
+                  f"{out['tp_ms']:.1f} ms, gradients finite {out['tp_grads_finite']}, launches {out['tp_made']} {tag}",
+                  flush=True)
+            del params, grads, img, ref_img, leaves
+            for name, e in check_calls(seen, kernels, "parallel: tile-parallel render")[0].items():
+                out["err"][name] = max(out["err"].get(name, 0.0), e)
+            del seen
+        finally:
+            dist.destroy_process_group()
+    t0 = time.perf_counter()
+    out["dryrun"] = dryrun.dryrun_multichip(1, device=dev.type)
+    out["dryrun_s"] = time.perf_counter() - t0
+    print(f"parallel: dryrun_multichip(1) in a spawned rank, {out['dryrun_s']:.1f} s: "
+          + "; ".join(f"{m} [t+{s:.1f}s]" for m, s in out["dryrun"]["stages"]), flush=True)
+    return out
+
+
+def host_trace(prof, wall_ms: float, tag: str) -> dict:
+    """Where a step's host time goes, from a torch.profiler run with CPU
+    (and CUDA) activities: the five host ops with the largest self time,
+    and the host time between consecutive kernel launches, summed by the
+    innermost host event (an op, or the autograd engine's evaluation of a
+    backward function) that runs through each gap."""
+    import collections
+
+    from torch.autograd import DeviceType
+
+    events = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    top = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CPU),
+                 key=lambda e: e.self_cpu_time_total, reverse=True)[:5]
+    launches = sorted((e for e in events if "LaunchKernel" in e.name), key=lambda e: e.time_range.start)
+    ops = [e for e in events if "LaunchKernel" not in e.name]
+    by_op = collections.Counter()
+    gaps = []
+    for a, b in zip(launches, launches[1:]):
+        gap = b.time_range.start - a.time_range.end
+        mid = (a.time_range.end + b.time_range.start) / 2
+        inside = [e for e in ops if e.time_range.start <= mid <= e.time_range.end]
+        name = (min(inside, key=lambda e: e.time_range.elapsed_us()).name if inside
+                else "no op: Python between the forward's ops")
+        by_op[name] += gap
+        gaps.append(gap)
+    span = (launches[-1].time_range.end - launches[0].time_range.start) / 1e3 if launches else 0.0
+    in_launch = sum(e.time_range.elapsed_us() for e in launches) / 1e3
+    between = sum(gaps) / 1e3
+    print(f"  host trace, one step under the profiler: {wall_ms:.1f} ms wall, {len(launches)} kernel launches "
+          f"over {span:.1f} ms, {in_launch:.1f} ms inside the launch calls, {between:.1f} ms on the host "
+          f"between launches {tag}")
+    for e in top:
+        print(f"  host op {e.self_cpu_time_total / 1e3:9.2f} ms self {e.count:5d}x  {e.key[:100]}")
+    for name, us in by_op.most_common(8):
+        print(f"  between launches {us / 1e3:9.2f} ms inside {name[:100]}")
+    return {"wall_ms": wall_ms, "launches": len(launches), "span_ms": span, "in_launch_ms": in_launch,
+            "between_ms": between, "top": [(e.key, e.self_cpu_time_total / 1e3) for e in top],
+            "between_by_op": [(k, v / 1e3) for k, v in by_op.most_common(8)]}
+
+
+def bench_phase(kernels, tag: str, device="cuda") -> dict:
+    """Phase 18(c): scripts.bench.main([]) in-process, its line captured and
+    the launches of each of its raster steps counted (its raster_step
+    wrapped); then one 320x448 step under torch.profiler (host_trace)."""
+    import contextlib
+    import io
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ggrt_official_torch.scripts import bench
+
+    made = []
+    raster_step = bench.raster_step
+
+    def counted(*args, **kwargs):
+        step = raster_step(*args, **kwargs)
+
+        def run():
+            before = counts(*kernels)
+            ok = step()
+            made.append(tuple(a - b for a, b in zip(counts(*kernels), before)))
+            return ok
+
+        return run
+
+    buf = io.StringIO()
+    bench.raster_step = counted
+    try:
+        reset(*kernels)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = bench.main(["--device", device])
+        seconds = time.perf_counter() - t0
+        launches = counts(*kernels)
+    finally:
+        bench.raster_step = raster_step
+    lines = buf.getvalue().splitlines()
+    payload = json.loads(lines[-1])
+    out = dict(rc=rc, lines=lines, payload=payload, made=made, launches=launches, s=seconds)
+    if rc != 0:
+        return out
+
+    dev = torch.device(device)
+    cams, leaves = bench.bench_inputs(IMAGE, dev)
+    kw = dict(max_per_tile=payload["detail"]["cap_policy"]["max_per_tile"], max_dup=8, tile_chunk=16,
+              binning_mode="banked")
+    step = raster_step(cams, leaves, IMAGE, kw)
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    out["trace"] = host_trace(prof, wall_ms, tag)
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -1877,6 +2249,7 @@ def main() -> None:
     from ggrt_official_torch.ops.rasterizer import cuda_composite as cc
     from ggrt_official_torch.ops.rasterizer import projection, tiling
     from ggrt_official_torch.ops.rasterizer import segment_sum as ss
+    from ggrt_official_torch.scripts import bench
     from ggrt_official_torch.training.trainer import GGRtTrainer
 
     from ggrt_official_torch.tools import diag_exp_precision as probe
@@ -2065,7 +2438,7 @@ def main() -> None:
     train_peak_gib = torch.cuda.max_memory_allocated() / 2**30
     # The host syncs left in one 'joint' step, each with the line it comes
     # from (not counted in the launches above).
-    syncs = joint_step_syncs(trainer, scenes[-2])
+    syncs = step_syncs(lambda: trainer.train_iteration(scenes[-2], "joint"))
     print(f"train: {sum(syncs.values())} host syncs in one 'joint' step: "
           + ", ".join(f"{where} x{n}" for where, n in syncs.most_common()), flush=True)
     copies = [where for where in syncs if where in to_device_lines()]
@@ -2077,6 +2450,7 @@ def main() -> None:
     t0 = time.perf_counter()
     raster = raster_phase(kernels, tag)
     launches["raster"] = tuple(sum(x) for x in zip(*(r["launches"] for r in raster.values())))
+    raster_ref = {name: (r["policy"], r["step_ms"]) for name, r in raster.items()}
     for r in raster.values():
         for name, e in r["err"].items():
             err[name] = max(err.get(name, 0.0), e)
@@ -2476,6 +2850,69 @@ def main() -> None:
             fail(f"observability: {name} on the card {v}")
     print(f"observability: ok in {time.perf_counter() - t0:.1f} s; launches bench {launches['bench']}, dump "
           f"{launches['dump']} {tag}", flush=True)
+    torch.cuda.empty_cache()
+
+    # 18. convert, parallel, bench: reset the counts before each path, read them after.
+    t0 = time.perf_counter()
+    cv = convert_phase(kernels, tag)
+    launches["convert"] = tuple(sum(x) for x in zip(*cv["made"]))
+    if cv["differ"] or not cv["differ_before"] or cv["rows"] != cv["keys"]:
+        fail(f"convert: {len(cv['differ'])} tensors differ after the conversion ({cv['differ'][:5]}), "
+             f"{cv['differ_before']} before it; {cv['rows']} rows for {cv['keys']} keys")
+    if not (cv["rgb_equal"] and cv["finite"]) or cv["made"] != [(2, 0, 0, 0)] * 2 or "composite_fwd" not in cv["err"]:
+        fail(f"convert: the two models' requests: rgb equal {cv['rgb_equal']}, finite {cv['finite']}, "
+             f"launches {cv['made']} (2 forwards each)")
+    torch.cuda.empty_cache()
+    reset(*kernels)
+    pp = parallel_phase(kernels, tag)
+    launches["dp"] = tuple(sum(x) for x in zip(*pp["made"]))
+    launches["tp"] = pp["tp_made"]
+    if pp["mesh"] != (1, 1):
+        fail(f"parallel: make_mesh() at world size 1 gave {pp['mesh']}")
+    if any(m != STEP_LAUNCHES["joint"] for m in pp["made"]) or not all(math.isfinite(x) for x in pp["losses"]):
+        fail(f"parallel: dp steps launched {pp['made']} (each {STEP_LAUNCHES['joint']}), losses {pp['losses']}")
+    if sum(pp["syncs"].values()):
+        fail(f"parallel: a dp step makes host syncs: {dict(pp['syncs'])}")
+    # The dp step at world size 1 is train_iteration's step: bit-equal where
+    # the card repeats itself, else no further from it than a second
+    # train_iteration run is (atomic float sums order themselves anew).
+    for what in ("params", "grads"):
+        (eq, _, rel), (eq_again, _, rel_again) = pp[what][0]["all"], pp[what][1]["all"]
+        if not (eq or (not eq_again and rel <= 4 * rel_again)):
+            fail(f"parallel: the dp step's {what} against train_iteration's {pp[what][0]}, a second "
+                 f"train_iteration against the first {pp[what][1]}")
+    if not pp["gauss_grad_max"] > 0:
+        fail("parallel: the compared dp step gave the Gaussians no gradient")
+    if sorted(pp["err"]) != sorted(k.source.stem for k in kernels[:3]):
+        fail(f"parallel: the dp step and the render launched no {sorted(pp['err'])} to check")
+    if not (pp["tp_err"] <= 1e-6 and pp["tp_grads_finite"]) or pp["tp_made"] != (1, 1, 1, 0):
+        fail(f"parallel: render_tile_parallel against api.render max abs {pp['tp_err']}, gradients finite "
+             f"{pp['tp_grads_finite']}, launches {pp['tp_made']} (not (1, 1, 1, 0))")
+    if len(pp["dryrun"]["stages"]) != 3 or not math.isfinite(pp["dryrun"]["loss"]):
+        fail(f"parallel: dryrun_multichip(1) {pp['dryrun']}")
+    for name, e in (*cv["err"].items(), *pp["err"].items()):
+        err[name] = max(err.get(name, 0.0), e)
+    torch.cuda.empty_cache()
+    bp = bench_phase(kernels, tag)
+    launches["bench_line"] = bp["launches"]
+    print("bench: " + "\n       ".join(bp["lines"]), flush=True)
+    if bp["rc"] != 0:
+        fail(f"bench: scripts.bench.main exited {bp['rc']}")
+    line, detail = bp["payload"], bp["payload"]["detail"]
+    wdet = detail["waymo_640x960"]
+    if line["metric"] != bench.METRIC or not line["value"] > 0 or detail["device"] != torch.cuda.get_device_name(0):
+        fail(f"bench: metric {line['metric']}, value {line['value']}, device {detail['device']}")
+    for name, policy in (("320x448", detail["cap_policy"]), ("640x960", wdet["cap_policy"])):
+        if policy != json.loads(json.dumps(raster_ref[name][0])):
+            fail(f"bench: cap_policy at {name} {policy}, phase 6's {raster_ref[name][0]}")
+    if not bp["made"] or any(m != RASTER_STEP_LAUNCHES for m in bp["made"]):
+        fail(f"bench: launches per raster step {bp['made']}, each {RASTER_STEP_LAUNCHES}")
+    print(f"bench: {len(bp['made'])} raster steps (2 warm-ups), each {RASTER_STEP_LAUNCHES}; 320x448 step "
+          f"{detail['step_ms']!r} ms, {line['value']!r} pixels/s (phase 6: {raster_ref['320x448'][1]!r} ms); "
+          f"640x960 step {wdet['step_ms']!r} ms, {wdet['pixels_per_s']!r} pixels/s (phase 6: "
+          f"{raster_ref['640x960'][1]!r} ms); main() {bp['s']:.1f} s {tag}", flush=True)
+    print(f"convert, parallel, bench: ok in {time.perf_counter() - t0:.1f} s; launches convert {launches['convert']}, "
+          f"dp {launches['dp']}, tp {launches['tp']}, bench {launches['bench_line']} {tag}", flush=True)
 
     sources = {
         "composite_fwd": ("ggrt_official_torch/csrc/composite_fwd.cu",
@@ -2513,7 +2950,9 @@ def main() -> None:
             and launches["eval"][0] and all(launches["loop"][:3]) and all(launches["finetune"][:3])
             and all(launches["cache"][:3]) and all(launches["flagship"][:3])
             and all(launches["llff"][:3]) and launches["video"][0] and launches["crop"][0]
-            and all(probe_launches) and launches["bench"][0] and launches["dump"][0]):
+            and all(probe_launches) and launches["bench"][0] and launches["dump"][0]
+            and launches["convert"][0] and all(launches["dp"][:3]) and all(launches["tp"][:3])
+            and all(launches["bench_line"])):
         fail(f"a kernel of a path was not launched: {launches}, probe {probe_launches}")
     print(smi)
     print(json.dumps({"kernels": table}))

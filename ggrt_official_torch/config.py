@@ -284,3 +284,23 @@ def tiny_config() -> GGRtConfig:
         "iponet.hidden_dim": 32,
         "iponet.context_dim": 8,
     })
+
+
+def dryrun_config() -> GGRtConfig:
+    """The multi-rank proof's widths (the JAX package's
+    __graft_entry__._dryrun_cfg): tiny_config() with one GRU step, narrower
+    encoder and IPO-Net, no depth loss and the predicted poses injected."""
+    return apply_overrides(tiny_config(), {
+        "iponet.iters": 1,
+        "iponet.seq_len": 1,
+        "iponet.foutput_dim": 16,
+        "iponet.hidden_dim": 16,
+        "encoder.d_feature": 16,
+        "encoder.num_monocular_samples": 4,
+        "encoder.gaussians_per_pixel": 1,
+        "encoder.backbone.num_layers": 2,
+        "encoder.backbone.d_out": 16,
+        "encoder.epipolar_transformer.num_samples": 2,
+        "train.use_depth_loss": False,
+        "train.use_pred_pose": True,
+    })

@@ -142,7 +142,7 @@ def load_npz(model: LPIPS, path: str) -> LPIPS:
 _cached: Optional[tuple] = None
 
 
-def lpips_fn(weights_path: str, device="cpu"):
+def lpips_fn(weights_path: str, device="cuda"):
     """A callable lpips(a, b) -> float for (3, h, w) images in [0, 1] (tensors
     or arrays), with the network from `weights_path` (an .npz as JAX's
     save_weights writes) on `device`; the last one built is kept."""

@@ -22,15 +22,7 @@ import torch
 from torch import nn
 
 from ..weights import _from_flax, backbone_resnet_name_map, resnet_encoder_name_map
-
-
-def _to_flax(kind: str, value) -> np.ndarray:
-    value = np.asarray(value)
-    if kind == "conv":
-        return np.transpose(value, (2, 3, 1, 0))
-    if kind in ("bias", "raw"):
-        return value
-    raise ValueError(kind)
+from .convert import convert_tensor
 
 
 def _tree(state_dict: dict, rows) -> dict:
@@ -42,7 +34,7 @@ def _tree(state_dict: dict, rows) -> dict:
         node = out
         for part in path[:-1]:
             node = node.setdefault(part, {})
-        node[path[-1]] = _to_flax(kind, state_dict[key])
+        node[path[-1]] = convert_tensor(kind, state_dict[key])
     return out
 
 

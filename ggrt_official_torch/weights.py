@@ -226,13 +226,19 @@ def prefix_map(rows, torch_prefix: str, flax_prefix: tuple[str, ...]):
     return [(f"{torch_prefix}.{k}", (*flax_prefix, *p), kind) for (k, p, kind) in rows]
 
 
-def encoder_name_map(cfg) -> list[tuple[str, tuple[str, ...], str]]:
-    """Every parameter of EncoderEpipolar: (torch key, flax path, kind)."""
+def encoder_name_map(cfg=None) -> list[tuple[str, tuple[str, ...], str]]:
+    """Every parameter of EncoderEpipolar: (torch key, flax path, kind).
+    With cfg None, only the heads and the five backbone projections, the
+    JAX converter's partial map (its convert.py:177-180)."""
     rows: list = []
     rows += dense_map("backbone_projection.1", ("backbone_projection",))
     rows += dense_map("depth_predictor.projection.1", ("depth_predictor", "projection"))
     rows += dense_map("to_gaussians.1", ("to_gaussians",))
     rows += conv_map("high_resolution_skip.0", ("high_resolution_skip",))
+    if cfg is None:
+        for i in range(5):
+            rows += conv_map(f"backbone.projections.layer{i}", ("backbone", f"projection{i}"))
+        return rows
     rows += prefix_map(
         backbone_resnet_name_map(cfg.backbone.model, cfg.backbone.num_layers),
         "backbone", ("backbone",),

@@ -922,3 +922,75 @@ def test_visualization_on_card_matches_cpu(cuda):
         got, want = fn(depth.to(cuda), img.to(cuda)), fn(depth, img)
         assert got.is_cuda and bool(torch.isfinite(got).all())
         torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-6)
+
+
+def test_tile_parallel_render_matches_api_render(cuda, tmp_path):
+    """render_tile_parallel, "cuda", at world size 1 (NCCL, a file://
+    store): the image equals api.render's with the same options, the means'
+    gradient agrees, and one step launches (fwd, bwd, scatter) once each."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from ggrt_official_torch.parallel import make_mesh
+    from ggrt_official_torch.parallel.tile_parallel import render_tile_parallel
+
+    sc = {k: v.to(cuda) for k, v in scene().items()}
+    kw = dict(max_dup=8, max_per_tile=512)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store", world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = make_mesh()
+        means = sc["means"].clone().requires_grad_(True)
+        kernels = (cuda_composite.composite_fwd, cuda_composite.composite_bwd, segment_sum.scatter_add_rows)
+        before = [k.launches for k in kernels]
+        img = render_tile_parallel(mesh, means, *(sc[k] for k in ARGS[1:]), SHAPE,
+                                   torch.zeros(3, device=cuda), backend="cuda", **kw)
+        (grad,) = torch.autograd.grad((img ** 2).mean(), means)
+        torch.cuda.synchronize()
+        assert [k.launches - b for k, b in zip(kernels, before)] == [1, 1, 1]
+    finally:
+        dist.destroy_process_group()
+    ref_means = sc["means"][None].clone().requires_grad_(True)
+    ref = api.render(*(sc[k][None] for k in ARGS[4:]), SHAPE, torch.zeros(1, 3, device=cuda), ref_means,
+                     *(sc[k][None] for k in ARGS[1:4]), backend="cuda", **kw)
+    (ref_grad,) = torch.autograd.grad((ref ** 2).mean(), ref_means)
+    assert torch.equal(img.detach(), ref[0].detach())
+    scale = float(ref_grad.abs().max())
+    assert scale > 0 and float((grad - ref_grad[0]).abs().max()) <= 1e-4 * scale
+
+
+def test_bench_measure_at_64x128(cuda, monkeypatch):
+    """scripts.bench.measure at 64x128 (both scales): the gate holds, the
+    line's numbers are the card's, every raster step launches (fwd, bwd,
+    scatter) once each and the banked gather where its gate admits K."""
+    from ggrt_official_torch.scripts import bench
+
+    monkeypatch.setattr(bench, "HEADLINE", ((64, 128), 2))
+    monkeypatch.setattr(bench, "WAYMO", ((64, 128), 1))
+    kernels = (cuda_composite.composite_fwd, cuda_composite.composite_bwd, segment_sum.scatter_add_rows,
+               banked_gather.banked_lists)
+    made, raster_step = [], bench.raster_step
+
+    def counted(*args, **kwargs):
+        step = raster_step(*args, **kwargs)
+
+        def run():
+            before = [k.launches for k in kernels]
+            out = step()
+            made.append([k.launches - b for k, b in zip(kernels, before)])
+            return out
+
+        return run
+
+    monkeypatch.setattr(bench, "raster_step", counted)
+    line = bench.measure("cuda")
+    d = line["detail"]
+    assert line["value"] > 0 and d["step_ms"] > 0 and d["device"] == torch.cuda.get_device_name(0)
+    assert d["pallas_vs_xla_mean_err"] < bench.GATE_MEAN and d["n_gaussians"] == 64 * 128 * 6
+    assert d["waymo_640x960"]["pixels_per_s"] > 0
+    # The banked kernel serves the lists where its gate admits this K on a
+    # one-tile-wide image; else the per-slot merge runs.
+    K = d["cap_policy"]["max_per_tile"]
+    gather = int(tiling.banked_uses_kernel(d["n_gaussians"], 1, 8, K))
+    assert made and all(m == [1, 1, 1, gather] for m in made), (made, K)

@@ -49,6 +49,7 @@ def test_walk_sees_the_package():
                 "utils/visualization.py", "utils/encoder_visualizer.py", "visualization/__init__.py",
                 "visualization/annotation.py", "visualization/cameras.py", "visualization/color_map.py",
                 "visualization/color_tables.py", "visualization/drawing.py", "visualization/feature_visualizer.py",
-                "visualization/layout.py"):
+                "visualization/layout.py", "training/convert.py", "parallel/__init__.py", "parallel/mesh.py",
+                "parallel/sharded_step.py", "parallel/tile_parallel.py", "parallel/dryrun.py", "scripts/bench.py"):
         assert f"ggrt_official_torch/{sub}" in names, sub
     assert "jax" in imported_roots(ROOT / "ggrt_official_tpu" / "ops" / "rasterizer" / "api.py")

@@ -5,6 +5,8 @@ through JAX's convert_torch_state_dicts and the port's flax carrier, and
 through the .npz that JAX's save_weights writes. Then metrics.lpips with
 $GGRT_LPIPS_WEIGHTS set (the evaluator's lpips key: test_torch_eval.py).
 """
+import inspect
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -125,3 +127,10 @@ def test_save_weights_is_jax_format(lpips_case, tmp_path):
     assert got.keys() == want.keys() and len(want) == 15
     for k in want:
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def test_lpips_fn_defaults_to_the_card():
+    """lpips_fn runs on the card unless the caller asks for the CPU, as
+    every other entry point of the port; metrics.lpips passes the images'
+    device."""
+    assert inspect.signature(tlpips.lpips_fn).parameters["device"].default == "cuda"
