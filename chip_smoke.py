@@ -236,6 +236,19 @@ Phases; each one that fails stops the run with a non-zero exit:
              then one 320x448 step under torch.profiler: the five host ops
              with the most self time, the launches and the host time
              between them by the host event running through each gap.
+ 19. sfm:    the SfM path without OpenCV, on the card: 8 PNG views at
+             378x504 rendered without OpenCV (a back plane and a 4x3 grid
+             of patches at other depths, an arc of cameras 0.15 rad apart,
+             80-degree field of view); SIFT ms per image (CUDA events) and keypoints;
+             matching and RANSAC + recoverPose ms per pair over retrieval's
+             pairs, and the host syncs of an image and of a pair (sync debug
+             mode); run_sfm_pipeline's seconds and edges, each edge's
+             rotation and translation-direction error against the true
+             relative pose; the extract_relative_poses CLI and its edges'
+             errors (every rotation error of both must be <= 1 degree);
+             SIFT on one view on the card
+             against the CPU path (share of keypoints within 1e-2 px, the
+             largest descriptor difference). Fails if OpenCV was imported.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or outside a checkout
 of the repository, it prints no result and exits non-zero.
@@ -1753,12 +1766,16 @@ def probe_checks(tag: str, device="cuda") -> dict:
             row["ms"] = cuda_ms(lambda: k.launch(x), 20)
             row["plain_ms"] = cuda_ms(lambda: k.plain(x), 20)
             row["library_ms"] = cuda_ms(lambda: {"exp": torch.exp, "recip": torch.reciprocal, "log": torch.log}[name](x), 20)
+            # The launch floor: an empty kernel on the same grid, through the
+            # same ctypes path and wrapper, timed as the kernel is.
+            row["floor_ms"] = cuda_ms(lambda: probe.probe_floor.launch(x), 20)
         else:
-            row["ms"] = row["plain_ms"] = row["library_ms"] = float("nan")
+            row["ms"] = row["plain_ms"] = row["library_ms"] = row["floor_ms"] = float("nan")
         out[name] = row
         print(f"probe: {name} on {tuple(x.shape)}: kernel {row['ulp']!r} ulp, torch {row['plain_ulp']!r} ulp of float64 "
               f"(bound {PROBE_ULP.get(name, 'correctly rounded')}); kernel against torch max abs "
-              f"{row['max_abs_err']!r} ({row['vs_plain_ulp']!r} ulp); {row['ms']!r} ms per launch (20 launches, CUDA events), plain "
+              f"{row['max_abs_err']!r} ({row['vs_plain_ulp']!r} ulp); {row['ms']!r} ms per launch (20 launches, CUDA events), launch "
+              f"floor (an empty kernel on the same grid) {row['floor_ms']!r}, plain "
               f"{row['plain_ms']!r}, torch's op {row['library_ms']!r}, bound {row['bound'][0]!r} ms by {row['bound'][1]} ({nbytes} bytes at 3.35 TB/s) "
               f"{tag}", flush=True)
     return out
@@ -2228,6 +2245,233 @@ def bench_phase(kernels, tag: str, device="cuda") -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     out["trace"] = host_trace(prof, wall_ms, tag)
+    return out
+
+
+# Phase 19's scene: a back plane and a 4x3 grid of patches at depths
+# between it and the cameras, each with its own texture, seen from an arc of
+# cameras looking at the origin, 0.15 rad apart, with an 80-degree field of
+# view (f = 0.6 w). RANSAC's poses here come from the best of a few
+# five-point samples (OpenCV's adaptive count at 80-95% inliers), so the
+# samples must span depths: with a back plane and a few small patches most
+# samples are nearly planar and an edge often lands past a degree; a
+# narrower field, a longer arc or repeated textures (SIFT matches a rotated
+# copy) do worse.
+SFM_PLANES = ((0.0, 0.0, 0.0, 1.8, 1.35),) + tuple(
+    (-0.15 - 1.05 * ((7 * k) % 12) / 11, -1.2 + 0.8 * (k % 4), -0.8 + 0.8 * (k // 4), 0.3, 0.28) for k in range(12))
+SFM_STEP, SFM_FOCAL = 0.15, 0.6
+SFM_VIEWS, SFM_IMAGE = 8, (378, 504)
+SFM_MAX_ROT_DEG = 1.0
+
+
+def render_plane_views(out_dir: Path, device="cuda"):
+    """Phase 19's views as PNGs, without OpenCV: each plane point (u, v) maps
+    to a pixel by K [r1 r2 (t + z r3)], and each pixel samples its plane's
+    texture bilinearly (grid_sample) where the plane covers it, in the order
+    of SFM_PLANES (the patches lie in front of the back plane and do not
+    overlap each other). Textures: smooth noise at three scales (SIFT needs
+    blob-scale structure). Returns (K, c2w (n, 4, 4))."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from PIL import Image
+
+    from ggrt_official_torch.sfm.sift import gaussian_blur
+
+    g = torch.Generator().manual_seed(0)
+
+    def texture(th, tw):
+        tex = torch.zeros(3, th, tw, device=device)
+        for sigma, amp in ((1.5, 0.5), (4, 0.7), (10, 1.0)):
+            layer = torch.stack([gaussian_blur(c, sigma) for c in torch.rand(3, th, tw, generator=g).to(device)])
+            tex += amp * (layer - layer.min()) / (layer.max() - layer.min() + 1e-6)
+        return (tex - tex.min()) / (tex.max() - tex.min() + 1e-6)
+
+    planes = [(*p, texture(480, 640) if k == 0 else texture(200, 260)) for k, p in enumerate(SFM_PLANES)]
+    h, w = SFM_IMAGE
+    f = SFM_FOCAL * w
+    K = np.array([[f, 0, w / 2], [0, f, h / 2], [0, 0, 1.0]])
+    ys, xs = torch.meshgrid(torch.arange(h, dtype=torch.float64, device=device),
+                            torch.arange(w, dtype=torch.float64, device=device), indexing="ij")
+    pix = torch.stack([xs, ys, torch.ones_like(xs)], -1).reshape(-1, 3)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    poses = []
+    for i in range(SFM_VIEWS):
+        a = (i - (SFM_VIEWS - 1) / 2) * SFM_STEP
+        c2w = np.eye(4)
+        c2w[:3, :3] = [[math.cos(a), 0, -math.sin(a)], [0, 1, 0], [math.sin(a), 0, math.cos(a)]]
+        c2w[:3, 3] = [2.5 * math.sin(a), 0.06 * i - 0.2, -2.5 * math.cos(a)]
+        poses.append(c2w)
+        w2c = np.linalg.inv(c2w)
+        img = torch.zeros(3, h * w, dtype=torch.float32, device=device)
+        for z0, cx, cy, hx, hy, tex in planes:
+            H = K @ np.concatenate([w2c[:3, 0:1], w2c[:3, 1:2], w2c[:3, 3:4] + z0 * w2c[:3, 2:3]], 1)
+            uv = pix @ torch.tensor(np.linalg.inv(H).T, device=device)
+            u, v = (uv[:, 0] / uv[:, 2] - cx) / hx, (uv[:, 1] / uv[:, 2] - cy) / hy
+            inside = (u.abs() <= 1) & (v.abs() <= 1)
+            grid = torch.stack([u, v], -1).float().view(1, 1, -1, 2)
+            img = torch.where(inside, F.grid_sample(tex[None], grid, align_corners=True)[0, :, 0], img)
+        png = (img.view(3, h, w).permute(1, 2, 0).clamp(0, 1) * 255).round().byte().cpu().numpy()
+        Image.fromarray(png).save(out_dir / f"{i:03d}.png")
+    return K, np.stack(poses)
+
+
+def relative_pose_errors(R, t, c2w, i: int, j: int) -> tuple[float, float]:
+    """(rotation error, translation-direction error) in degrees of an edge
+    (x_j = R x_i + t) against the true poses."""
+    import numpy as np
+
+    w2c_i, w2c_j = np.linalg.inv(c2w[i]), np.linalg.inv(c2w[j])
+    R_true = w2c_j[:3, :3] @ w2c_i[:3, :3].T
+    t_true = w2c_j[:3, 3] - R_true @ w2c_i[:3, 3]
+    cos_r = (np.trace(np.asarray(R) @ R_true.T) - 1) / 2
+    cos_t = np.dot(t, t_true) / (np.linalg.norm(t) * np.linalg.norm(t_true))
+    return (math.degrees(math.acos(float(np.clip(cos_r, -1, 1)))),
+            math.degrees(math.acos(float(np.clip(cos_t, -1, 1)))))
+
+
+def event_ms(fn, device) -> tuple[float, object]:
+    """(ms, fn's result): CUDA events around one call on the card (the call
+    ends in a host read, so the events close behind it), else the host clock."""
+    import torch
+
+    if torch.device(device).type != "cuda":
+        t0 = time.perf_counter()
+        out = fn()
+        return (time.perf_counter() - t0) * 1e3, out
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
+
+
+def sfm_phase(tag: str, root: Path, device="cuda") -> dict:
+    """Phase 19: the SfM path without OpenCV on `device`. Renders the views,
+    times SIFT per image and matching and RANSAC + recoverPose per pair
+    (retrieval's pairs, 4 per view), counts their host syncs, runs
+    run_sfm_pipeline and the extract_relative_poses CLI, and holds one
+    view's SIFT on the card against the CPU path's."""
+    import numpy as np
+    import torch
+
+    from ggrt_official_torch.data.image_io import read_gray
+    from ggrt_official_torch.evaluation.pose_accuracy import read_g2o_file
+    from ggrt_official_torch.scripts import extract_relative_poses
+    from ggrt_official_torch.sfm import sift, two_view
+    from ggrt_official_torch.sfm.pipeline import run_sfm_pipeline
+    from ggrt_official_torch.sfm.retrieval import pairs_from_retrieval
+
+    dev = torch.device(device)
+    out = {}
+    views = root / "sfm_views"
+    K, c2w = render_plane_views(views, device=dev)
+    files = sorted(p.name for p in views.iterdir())
+    grays = [read_gray(str(views / f)) for f in files]
+
+    # (a) SIFT per image (one warm-up image first), and its host syncs.
+    sift.detect_and_compute(grays[0], 4096, device=dev)
+    feats, out["sift_ms"], out["keypoints"] = [], [], []
+    for gray in grays:
+        ms, (kp, desc) = event_ms(lambda: sift.detect_and_compute(gray, 4096, device=dev), dev)
+        feats.append((kp.pt, desc))
+        out["sift_ms"].append(ms)
+        out["keypoints"].append(len(desc))
+    syncs = step_syncs(lambda: sift.detect_and_compute(grays[1], 4096, device=dev)) \
+        if dev.type == "cuda" else {}
+    out["sift_syncs"] = sum(syncs.values())
+    clock = "CUDA events" if dev.type == "cuda" else "host clock"
+    print(f"sfm: SIFT ms per image {', '.join(f'{x:.2f}' for x in out['sift_ms'])} ({clock}, after one "
+          f"warm-up); keypoints {out['keypoints']}; host syncs of one image {out['sift_syncs']} "
+          f"{dict(syncs)} {tag}", flush=True)
+
+    # (b) matching and RANSAC + recoverPose per pair, then one pass of every
+    # pair under the sync debug mode.
+    pairs = pairs_from_retrieval(str(views), files, num_matches=4)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out["match_ms"], out["geom_ms"] = [], []
+
+    def pair_pass(timed: bool):
+        kept = 0
+        for i, j in pairs:
+            ms_m, m = event_ms(lambda: two_view.match_pair(feats[i], feats[j]), dev)
+            if m is None:
+                continue
+            ms_g, tv = event_ms(lambda: two_view.two_view_geometry(m[0], m[1], K, 30, gen), dev)
+            kept += tv is not None
+            if timed:
+                out["match_ms"].append(ms_m)
+                out["geom_ms"].append(ms_g)
+        return kept
+
+    warm = two_view.match_pair(feats[pairs[0][0]], feats[pairs[0][1]])
+    two_view.two_view_geometry(warm[0], warm[1], K, 30, torch.Generator(device=dev).manual_seed(1))
+    pair_pass(True)
+    syncs = step_syncs(lambda: pair_pass(False)) if dev.type == "cuda" else {}
+    out["pair_syncs"] = sum(syncs.values()) / max(len(pairs), 1)
+    print(f"sfm: {len(pairs)} pairs; matching ms per pair {', '.join(f'{x:.2f}' for x in out['match_ms'])}; "
+          f"RANSAC + recoverPose ms per pair {', '.join(f'{x:.2f}' for x in out['geom_ms'])}; host syncs per "
+          f"pair {out['pair_syncs']!r} ({dict(syncs)}) {tag}", flush=True)
+
+    # One image's SIFT and one pair's geometry under torch.profiler: device
+    # time against wall time, the launches, and each stage's host and device
+    # time (the record_function ranges in sift.py and essential.py).
+    if dev.type == "cuda":
+        from torch.profiler import ProfilerActivity, profile
+
+        for what, fn in (("one SIFT image", lambda: sift.detect_and_compute(grays[1], 4096, device=dev)),
+                         ("one pair's RANSAC + recoverPose", lambda: two_view.two_view_geometry(warm[0], warm[1], K, 30, gen))):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            show_profile(prof, what, wall, tag)
+            avg = prof.key_averages()
+            launches = sum(e.count for e in avg if "LaunchKernel" in e.key)
+            stages = [e for e in avg if e.key.startswith(("sift.", "ransac.", "recover_pose"))]
+            print(f"  {launches} kernel launches; stages (host ms, device ms): " + ", ".join(
+                f"{e.key} ({e.cpu_time_total / 1e3:.2f}, {getattr(e, 'device_time_total', 0) / 1e3:.2f})"
+                for e in stages), flush=True)
+
+    # (c) the pipeline, and each edge against the true relative pose.
+    t0 = time.perf_counter()
+    res = run_sfm_pipeline(str(views), str(root / "sfm_out"), K, num_matches=4, min_inliers=30, device=dev)
+    out["pipeline_s"] = time.perf_counter() - t0
+    out["edges"] = [(g.i, g.j, g.num_inliers, *relative_pose_errors(g.R, g.t, c2w, g.i, g.j))
+                    for g in res["geometries"]]
+    out["poses_written"] = (root / "sfm_out" / "poses_bounds.npy").exists()
+    print(f"sfm: run_sfm_pipeline {out['pipeline_s']:.2f} s, {len(out['edges'])} edges, poses_bounds.npy "
+          f"{out['poses_written']}; (i, j, inliers, rotation error deg, translation direction error deg): "
+          f"{[(i, j, n, round(r, 4), round(tt, 4)) for i, j, n, r, tt in out['edges']]} {tag}", flush=True)
+
+    # (d) the CLI on the same views.
+    t0 = time.perf_counter()
+    _, edges = extract_relative_poses.main(["--image_dir", str(views), "--out", str(root / "sfm.g2o"),
+                                            "--fx", str(K[0, 0]), "--device", str(dev)])
+    out["cli_s"] = time.perf_counter() - t0
+    out["cli_edges"] = [(i, j, n, *relative_pose_errors(R, t, c2w, i, j)) for i, j, R, t, n in edges]
+    out["cli_g2o_edges"] = len(read_g2o_file(str(root / "sfm.g2o"))[1])
+    worst = max((e[3] for e in out["cli_edges"]), default=float("nan"))
+    print(f"sfm: extract_relative_poses {out['cli_s']:.2f} s, {len(edges)} edges ({out['cli_g2o_edges']} in the "
+          f"g2o), worst rotation error {worst!r} deg {tag}", flush=True)
+
+    # (e) SIFT on view 0, the card against the CPU path.
+    kd, dd = sift.detect_and_compute(grays[0], 4096, device=dev)
+    kc, dc = sift.detect_and_compute(grays[0], 4096, device="cpu")
+    pd, pc_ = kd.pt.cpu().double(), kc.pt.double()
+    dist = torch.cdist(pd, pc_) + 1e3 * ((kd.angle.cpu()[:, None] - kc.angle[None]).abs() > 1e-2)
+    near, idx = dist.min(1) if len(pc_) else (torch.full((len(pd),), math.inf), torch.zeros(len(pd), dtype=torch.long))
+    agree = near < 1e-2
+    out["sift_agree"] = float(agree.double().mean()) if len(pd) else 0.0
+    out["sift_counts"] = (len(pd), len(pc_))
+    out["desc_max_diff"] = float((dd.cpu()[agree] - dc[idx[agree]]).abs().max()) if agree.any() else float("nan")
+    print(f"sfm: SIFT on view 0, card against CPU: {out['sift_counts'][0]} and {out['sift_counts'][1]} keypoints, "
+          f"share of the card's within 1e-2 px (same angle within 1e-2 deg) of the CPU's {out['sift_agree']!r}, "
+          f"largest descriptor difference {out['desc_max_diff']!r} (of 0-255) {tag}", flush=True)
+    out["cv2_loaded"] = "cv2" in sys.modules
     return out
 
 
@@ -2913,6 +3157,29 @@ def main() -> None:
           f"{raster_ref['640x960'][1]!r} ms); main() {bp['s']:.1f} s {tag}", flush=True)
     print(f"convert, parallel, bench: ok in {time.perf_counter() - t0:.1f} s; launches convert {launches['convert']}, "
           f"dp {launches['dp']}, tp {launches['tp']}, bench {launches['bench_line']} {tag}", flush=True)
+
+    # 19. sfm: SIFT, matching, RANSAC and recoverPose on the card, no OpenCV.
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        sf = sfm_phase(tag, Path(tmp))
+    if sf["cv2_loaded"]:
+        fail("sfm: OpenCV (cv2) was imported")
+    if not sf["edges"]:
+        fail("sfm: run_sfm_pipeline found no edge")
+    bad = [e for e in sf["edges"] if not e[3] <= SFM_MAX_ROT_DEG]
+    if bad:
+        fail(f"sfm: edges with a rotation error above {SFM_MAX_ROT_DEG} deg (i, j, inliers, deg, deg): {bad}")
+    bad = [e for e in sf["cli_edges"] if not e[3] <= SFM_MAX_ROT_DEG]
+    if bad:
+        fail(f"sfm: the CLI's edges with a rotation error above {SFM_MAX_ROT_DEG} deg (i, j, inliers, deg, deg): "
+             f"{bad}")
+    if not sf["poses_written"] or not sf["cli_edges"] or sf["cli_g2o_edges"] != len(sf["cli_edges"]):
+        fail(f"sfm: poses_bounds.npy written {sf['poses_written']}; the CLI's edges {len(sf['cli_edges'])}, "
+             f"{sf['cli_g2o_edges']} in its g2o")
+    print(f"sfm: ok in {time.perf_counter() - t0:.1f} s; {len(sf['edges'])} edges, worst rotation error "
+          f"{max(e[3] for e in sf['edges'])!r} deg {tag}", flush=True)
 
     sources = {
         "composite_fwd": ("ggrt_official_torch/csrc/composite_fwd.cu",

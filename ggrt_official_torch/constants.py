@@ -13,10 +13,11 @@ from functools import lru_cache
 import torch
 
 
-@lru_cache(maxsize=None)
+@lru_cache(maxsize=4096)
 def device_constant(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     """torch.tensor(values, dtype, device), made on the first call and
-    shared after it: callers must not write into it. It is made outside
+    shared after it (the 4096 most recent tables: the SfM path keys some by
+    image size): callers must not write into it. It is made outside
     inference mode, so that a first call under torch.inference_mode() does
     not leave an inference tensor that autograd may not save later."""
     with torch.inference_mode(False):

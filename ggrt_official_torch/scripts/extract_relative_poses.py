@@ -3,11 +3,12 @@ scripts/extract_relative_poses.py; the JAX package's root script of the
 same name).
 
 The reference shells out to hloc (SuperPoint features + matching) and
-COLMAP two-view geometries; the same pipeline is built on OpenCV: SIFT
-features -> FLANN matching with ratio test -> essential matrix (RANSAC)
--> R,t decomposition -> g2o EDGE_SE3:QUAT relative poses + VERTEX
-placeholders. It runs on the host and needs OpenCV, which it imports where
-it is used.
+COLMAP two-view geometries; the JAX script builds the same pipeline on
+OpenCV: SIFT features -> FLANN matching with ratio test -> essential
+matrix (RANSAC) -> R,t decomposition -> g2o EDGE_SE3:QUAT relative poses +
+VERTEX placeholders. This one runs OpenCV's algorithms in torch on the
+card (`sfm/sift.py`, exact 2-NN matching, `sfm/essential.py`) and needs no
+OpenCV; --device cpu runs them on the CPU, --seed seeds the RANSAC draws.
 
 Usage:
   python -m ggrt_official_torch.scripts.extract_relative_poses --image_dir <dir> --out graph.g2o --fx 300
@@ -19,6 +20,10 @@ import itertools
 import os
 
 import numpy as np
+import torch
+
+from ..data.image_io import read_image
+from ..sfm.two_view import extract_features, ratio_matches, two_view_geometry
 
 
 def rotmat_to_quat(R: np.ndarray) -> np.ndarray:
@@ -44,21 +49,20 @@ def rotmat_to_quat(R: np.ndarray) -> np.ndarray:
 
 
 def extract_relative_poses(image_dir: str, K: np.ndarray, max_pairs_per_image: int = 5,
-                           min_matches: int = 30):
-    import cv2
-
+                           min_matches: int = 30, device="cuda", generator: torch.Generator | None = None):
+    """Relative poses of every pair at most `max_pairs_per_image` apart in
+    file order: (files, [(i, j, R, t, inliers)]). Features, matching and
+    geometry run on `device`; `generator` (on `device`, seeded 0 when None)
+    draws the RANSAC samples."""
     files = sorted(
         f for f in os.listdir(image_dir)
         if f.lower().endswith((".jpg", ".jpeg", ".png"))
     )
-    sift = cv2.SIFT_create()
-    feats = []
-    for f in files:
-        img = cv2.imread(os.path.join(image_dir, f), cv2.IMREAD_GRAYSCALE)
-        kp, desc = sift.detectAndCompute(img, None)
-        feats.append((kp, desc))
+    dev = torch.device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    feats = extract_features(image_dir, files, max_features=0, device=dev)
 
-    matcher = cv2.FlannBasedMatcher(dict(algorithm=1, trees=5), dict(checks=50))
     edges = []
     n = len(files)
     for i, j in itertools.combinations(range(n), 2):
@@ -66,22 +70,14 @@ def extract_relative_poses(image_dir: str, K: np.ndarray, max_pairs_per_image: i
             continue
         kpi, di = feats[i]
         kpj, dj = feats[j]
-        if di is None or dj is None:
+        q, t = ratio_matches(di, dj, 0.8)
+        if len(q) < min_matches:
             continue
-        matches = matcher.knnMatch(di, dj, k=2)
-        good = [m for m, nn in matches if m.distance < 0.8 * nn.distance]
-        if len(good) < min_matches:
+        tv = two_view_geometry(kpi[q], kpj[t], K, min_matches, generator)
+        if tv is None:
             continue
-        pts_i = np.float32([kpi[m.queryIdx].pt for m in good])
-        pts_j = np.float32([kpj[m.trainIdx].pt for m in good])
-        E, mask = cv2.findEssentialMat(pts_i, pts_j, K, cv2.RANSAC, 0.999, 1.0)
-        if E is None or E.shape != (3, 3):
-            continue
-        inliers = int(mask.sum()) if mask is not None else 0
-        if inliers < min_matches:
-            continue
-        _, R, t, _ = cv2.recoverPose(E, pts_i, pts_j, K, mask=mask)
-        edges.append((i, j, R, t[:, 0], inliers))
+        R, t, inliers = tv
+        edges.append((i, j, R, t, inliers))
     return files, edges
 
 
@@ -106,11 +102,11 @@ def main(argv=None):
     ap.add_argument("--fy", type=float, default=None)
     ap.add_argument("--cx", type=float, default=None)
     ap.add_argument("--cy", type=float, default=None)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
-    import cv2
-
-    sample = cv2.imread(
+    sample = read_image(
         os.path.join(args.image_dir, sorted(os.listdir(args.image_dir))[0])
     )
     h, w = sample.shape[:2]
@@ -119,7 +115,9 @@ def main(argv=None):
         [0, args.fy if args.fy else args.fx, args.cy if args.cy else h / 2],
         [0, 0, 1],
     ])
-    files, edges = extract_relative_poses(args.image_dir, K)
+    dev = torch.device(args.device)
+    files, edges = extract_relative_poses(args.image_dir, K, device=dev,
+                                          generator=torch.Generator(device=dev).manual_seed(args.seed))
     write_g2o(args.out, len(files), edges)
     print(f"{len(files)} images, {len(edges)} relative poses -> {args.out}")
     return files, edges

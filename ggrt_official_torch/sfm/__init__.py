@@ -2,14 +2,16 @@
 
 The reference shells out to hloc (SuperPoint/SuperGlue/NetVLAD) + COLMAP
 (its scripts/extract_relative_poses.py and preprocess_dbarf_dataset.py);
-the same pipeline stages are built on numpy and OpenCV with matching
-interfaces. Retrieval needs numpy and PIL only; the two-view geometry
-(SIFT, FLANN, the essential matrix) imports OpenCV where it runs:
+the JAX package builds the same stages on numpy and OpenCV; the port needs
+no OpenCV: retrieval is numpy and PIL, and SIFT, matching and the
+essential matrix run in torch on the card (or the CPU):
 
   retrieval.py       — global descriptors + top-k pair selection
                        (pairs_from_retrieval equivalent)
-  two_view.py        — SIFT features, ratio matching, essential-matrix
-                       two-view geometries
+  sift.py            — SIFT keypoints and descriptors (OpenCV's)
+  essential.py       — five-point RANSAC essential matrix, recoverPose
+  two_view.py        — features, exact 2-NN ratio matching, two-view
+                       geometries
   disambiguation.py  — geodesic-consistency match scoring + filters
                        (calculate_geodesic_consistency_scores /
                        filter_matches equivalents)

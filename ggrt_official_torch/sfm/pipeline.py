@@ -10,7 +10,9 @@ from __future__ import annotations
 import os
 
 import numpy as np
+import torch
 
+from ..data.image_io import read_image
 from ..geometry.pose_init import PoseInitializer
 from .disambiguation import filter_edges, geodesic_consistency_scores
 from .retrieval import pairs_from_retrieval
@@ -66,9 +68,13 @@ def run_sfm_pipeline(
     threshold: float = 0.15,
     min_inliers: int = 30,
     depth_bounds: tuple[float, float] = (1.0, 100.0),
+    device="cuda",
+    generator: torch.Generator | None = None,
 ) -> dict:
     """Returns {files, geometries, scores, poses_c2w} and writes
-    view_graph.g2o + poses_bounds.npy into out_dir."""
+    view_graph.g2o + poses_bounds.npy into out_dir. Features, matching and
+    the two-view geometries run on `device`; `generator` (on `device`,
+    seeded 0 when None) draws the RANSAC samples."""
     os.makedirs(out_dir, exist_ok=True)
     files = sorted(
         f for f in os.listdir(image_dir)
@@ -76,7 +82,7 @@ def run_sfm_pipeline(
     )
     n = len(files)
     pairs = pairs_from_retrieval(image_dir, files, num_matches=num_matches)
-    geometries = build_view_graph(image_dir, files, pairs, K, min_inliers)
+    geometries = build_view_graph(image_dir, files, pairs, K, min_inliers, device=device, generator=generator)
 
     scores = None
     if disambiguate and geometries:
@@ -98,9 +104,7 @@ def run_sfm_pipeline(
         try:
             init = PoseInitializer(edges, n)
             poses_c2w = init.init_poses_from_mst()
-            import cv2
-
-            sample = cv2.imread(os.path.join(image_dir, files[0]))
+            sample = read_image(os.path.join(image_dir, files[0]))
             write_poses_bounds(
                 os.path.join(out_dir, "poses_bounds.npy"), poses_c2w, K,
                 sample.shape[:2], *depth_bounds,

@@ -994,3 +994,73 @@ def test_bench_measure_at_64x128(cuda, monkeypatch):
     K = d["cap_policy"]["max_per_tile"]
     gather = int(tiling.banked_uses_kernel(d["n_gaussians"], 1, 8, K))
     assert made and all(m == [1, 1, 1, gather] for m in made), (made, K)
+
+
+def syncs_of(fn):
+    """(fn's result, the host syncs it made) under torch's sync debug mode."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return out, sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
+
+
+def noise_image(h=120, w=160, seed=0):
+    """Grey levels of smooth noise at two scales (blob structure for SIFT)."""
+    from ggrt_official_torch.sfm.sift import gaussian_blur
+
+    g = torch.Generator().manual_seed(seed)
+    img = sum(gaussian_blur(torch.rand(h, w, generator=g), s) * a for s, a in ((1.5, 0.6), (4.0, 1.0)))
+    return ((img - img.min()) / (img.max() - img.min()) * 255).round().to(torch.uint8).numpy()
+
+
+def test_sift_on_card_matches_cpu(cuda):
+    """SIFT of one image on the card against the CPU path: >= 97% of the
+    card's keypoints within 1e-2 px (and 1e-2 degrees) of one of the CPU's,
+    their descriptors within 2 (of 255; float32 sums in another order may
+    round a bin the other way); one host sync an image once the constant
+    tables are on the card."""
+    from ggrt_official_torch.sfm import sift
+
+    img = noise_image()
+    sift.detect_and_compute(img, 500, device=cuda)
+    (kd, dd), syncs = syncs_of(lambda: sift.detect_and_compute(img, 500, device=cuda))
+    kc, dc = sift.detect_and_compute(img, 500, device="cpu")
+    assert syncs == 1 and len(dd) > 50
+    dist = torch.cdist(kd.pt.cpu().double(), kc.pt.double())
+    dist += 1e3 * ((kd.angle.cpu()[:, None] - kc.angle[None]).abs() > 1e-2)
+    near, idx = dist.min(1)
+    agree = near < 1e-2
+    assert agree.double().mean() >= 0.97
+    assert (dd.cpu()[agree] - dc[idx[agree]]).abs().max() <= 2
+
+
+def test_two_view_geometry_on_card(cuda):
+    """RANSAC + recoverPose on the card on 300 exact correspondences (30%
+    outliers, a 1280x960 camera): the rotation within 0.1 degrees of the
+    truth, and two host syncs (one RANSAC round, the result's copy)."""
+    from scipy.spatial.transform import Rotation
+
+    from ggrt_official_torch.sfm import two_view
+
+    K = np.array([[1200.0, 0, 640], [0, 1200.0, 480], [0, 0, 1]])
+    rs = np.random.RandomState(7)
+    R = Rotation.from_rotvec(rs.randn(3) * 0.1).as_matrix()
+    t = rs.randn(3)
+    X = np.c_[rs.uniform(-3, 3, (300, 2)), rs.uniform(4, 8, 300)]
+    x1, x2 = (K @ X.T).T, (K @ ((R @ X.T).T + t / np.linalg.norm(t)).T).T
+    x1, x2 = x1[:, :2] / x1[:, 2:], x2[:, :2] / x2[:, 2:]
+    x2[:90] = rs.uniform(0, 1, (90, 2)) * [1280, 960]
+    p1, p2 = (torch.tensor(x, dtype=torch.float32, device=cuda) for x in (x1, x2))
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    two_view.two_view_geometry(p1, p2, K, 30, gen)
+    (Rt, tt, n), syncs = syncs_of(lambda: two_view.two_view_geometry(p1, p2, K, 30, gen))
+    err = np.degrees(np.linalg.norm(Rotation.from_matrix(Rt @ R.T).as_rotvec()))
+    assert err < 0.1 and n >= 210 and syncs == 2, (err, n, syncs)

@@ -1,6 +1,9 @@
 """The port stands alone: no module of ggrt_official_torch/ and nothing in
-chip_smoke.py imports jax, flax, optax or the JAX package."""
+chip_smoke.py imports jax, flax, optax or the JAX package, nor OpenCV (the
+card's machine has none); the SfM entry points run on the card unless the
+caller asks for the CPU."""
 import ast
+import inspect
 from pathlib import Path
 
 import pytest
@@ -29,6 +32,30 @@ def test_no_jax_imports(path):
     assert not imported_roots(path) & FORBIDDEN
 
 
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_opencv_imports(path):
+    """Not even inside a function: the SfM path's SIFT, matching and
+    essential matrix are the port's own (sfm/sift.py, sfm/essential.py)."""
+    assert "cv2" not in imported_roots(path)
+
+
+def test_sfm_entry_points_default_to_the_card():
+    """run_sfm_pipeline, build_view_graph, extract_features, the
+    extract_relative_poses function and its CLI's --device default to
+    "cuda"; SIFT's detect_and_compute too."""
+    from ggrt_official_torch.scripts import extract_relative_poses as erp
+    from ggrt_official_torch.sfm import pipeline, sift, two_view
+
+    for fn in (pipeline.run_sfm_pipeline, two_view.build_view_graph, two_view.extract_features,
+               erp.extract_relative_poses, sift.detect_and_compute):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
+    tree = ast.parse(inspect.getsource(erp.main))
+    defaults = {node.args[0].value: kw.value.value for node in ast.walk(tree)
+                if isinstance(node, ast.Call) and getattr(node.func, "attr", None) == "add_argument"
+                for kw in node.keywords if kw.arg == "default"}
+    assert defaults["--device"] == "cuda" and defaults["--seed"] == 0
+
+
 def test_walk_sees_the_package():
     assert len(FILES) > 20
     names = {str(p.relative_to(ROOT)) for p in FILES}
@@ -50,6 +77,8 @@ def test_walk_sees_the_package():
                 "visualization/annotation.py", "visualization/cameras.py", "visualization/color_map.py",
                 "visualization/color_tables.py", "visualization/drawing.py", "visualization/feature_visualizer.py",
                 "visualization/layout.py", "training/convert.py", "parallel/__init__.py", "parallel/mesh.py",
-                "parallel/sharded_step.py", "parallel/tile_parallel.py", "parallel/dryrun.py", "scripts/bench.py"):
+                "parallel/sharded_step.py", "parallel/tile_parallel.py", "parallel/dryrun.py", "scripts/bench.py",
+                "sfm/sift.py", "sfm/essential.py"):
         assert f"ggrt_official_torch/{sub}" in names, sub
     assert "jax" in imported_roots(ROOT / "ggrt_official_tpu" / "ops" / "rasterizer" / "api.py")
+    assert "cv2" in imported_roots(ROOT / "ggrt_official_tpu" / "sfm" / "two_view.py")

@@ -3,14 +3,18 @@ quaternion Lie group (values and gradients, at θ = 0, a small θ inside
 the Taylor branches, a generic θ and θ near π, and R_to_quat's pivot
 ties), the g2o pose-accuracy protocol, the track builder, the pose
 initialisation, the disambiguation filter, the retrieval descriptors and
-pairs, and the OpenCV two-view geometry, SfM pipeline and relative-pose
-CLI on PNG views the tests write.
+pairs, and the two-view geometry, SfM pipeline and relative-pose CLI (no
+OpenCV in the port) against the JAX package's OpenCV ones on PNG views the
+tests write (test_sfm's, and chip_smoke phase 19's scene).
 
 Inputs are made with numpy from a seed and given to both sides. Each test
 states its tolerance.
 """
+import importlib.util
 import math
 import os
+import shutil
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -41,6 +45,8 @@ from ggrt_official_tpu.sfm import pipeline as jpipe
 from ggrt_official_tpu.sfm import retrieval as jret
 from ggrt_official_tpu.sfm import two_view as jtv
 from tests.test_sfm import _render_plane_views
+
+ROOT = Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -318,7 +324,7 @@ def test_disambiguation_matches_jax(filter_type):
     assert [(g.i, g.j) for g in kept_t] == [(g.i, g.j) for g in kept_j] and kept_j
 
 
-# --- retrieval and the OpenCV tools ------------------------------------------------------
+# --- retrieval and the SfM tools ------------------------------------------------------
 
 @pytest.fixture(scope="module")
 def plane_views(tmp_path_factory):
@@ -360,56 +366,165 @@ def test_retrieval_descriptor_matches_jax(tmp_path, plane_views, kind):
     assert tret.pairs_from_retrieval(str(out), names, 2) == jret.pairs_from_retrieval(str(out), names, 2)
 
 
-def seeded(fn, *args, **kw):
-    """Run fn with OpenCV's random generator seeded (RANSAC and FLANN's
-    trees draw from it), so two runs on the same images agree."""
+def load_chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.fixture(scope="module")
+def scene_views(tmp_path_factory):
+    """chip_smoke phase 19's scene rendered on the CPU: its 8 views at 378x504
+    (a back plane and a 4x3 grid of patches at other depths, each with its
+    own texture), and a folder with the first 4 of them; with K and the
+    c2w poses.
+
+    Not test_sfm's views (two planes, the second texture mirrored, 240x320):
+    there JAX's own OpenCV poses are off the truth by up to 8.8 degrees in
+    rotation and 86 in translation direction on some pairs, and move from
+    0.20 to 8.79 degrees on one pair when only cv2's seed changes (FLANN's
+    trees; 10 seeds), so no pose there can be held to JAX's."""
+    d = tmp_path_factory.mktemp("scene")
+    K, c2w = load_chip_smoke().render_plane_views(d / "all", device="cpu")
+    (d / "four").mkdir()
+    for f in sorted(os.listdir(d / "all"))[:4]:
+        shutil.copy(d / "all" / f, d / "four" / f)
+    return str(d / "all"), str(d / "four"), K, c2w
+
+
+def seeded_runs(fn, *args, seeds=5, **kw):
+    """fn's result with OpenCV's random generator (FLANN's trees draw from
+    it) seeded 0, 1, ..., seeds - 1."""
     import cv2
 
-    cv2.setRNGSeed(0)
-    return fn(*args, **kw)
+    out = []
+    for s in range(seeds):
+        cv2.setRNGSeed(s)
+        out.append(fn(*args, **kw))
+    return out
 
 
-def test_two_view_matches_jax(plane_views):
-    """build_view_graph on the same pairs: the same edges, inlier counts, R
-    and t (OpenCV in both, seeded alike; exact)."""
-    img_dir, K, _ = plane_views
+def pose_errors(R, t, c2w, i, j):
+    """(rotation, translation direction) errors in degrees of a relative pose
+    x_j = R x_i + t against the views' true poses."""
+    w2c_i, w2c_j = np.linalg.inv(c2w[i]), np.linalg.inv(c2w[j])
+    R_true = w2c_j[:3, :3] @ w2c_i[:3, :3].T
+    t_true = w2c_j[:3, 3] - R_true @ w2c_i[:3, 3]
+    return pose_difference(R, t, R_true, t_true)
+
+
+def pose_difference(R, t, R2, t2):
+    """The angle between two rotations and between two translation
+    directions, in degrees."""
+    rot = np.degrees(np.linalg.norm(Rotation.from_matrix(R @ R2.T).as_rotvec()))
+    cos = np.dot(t, t2) / (np.linalg.norm(t) * np.linalg.norm(t2))
+    return rot, np.degrees(np.arccos(np.clip(cos, -1, 1)))
+
+
+def check_edges(got, runs, c2w):
+    """The port's edges [(i, j, R, t, inliers)] against JAX's OpenCV ones from
+    the same views at 5 cv2 seeds (`runs`, seed 0 first), pair by pair.
+
+    >= 90% of JAX's seed-0 pairs are kept; a kept pair's inlier count is
+    within 5% of JAX's; R is a rotation and t a unit vector (1e-9); R lies
+    within 0.5 degrees and t within 2 degrees of JAX's R and t at one of the
+    seeds; and the rotation and translation-direction errors against the
+    true poses are each at most JAX's largest over the seeds + 0.5 degrees.
+
+    JAX is taken over 5 seeds because its own pose moves with FLANN's seed:
+    on this scene two of its seeds differ by up to 1.10 degrees on a pair
+    (19 pairs, 5 seeds). OpenCV's RANSAC keeps the five-point model with
+    the most inliers and refines nothing, so a pose is as good as the best
+    of a few samples; on the same correspondences the port's RANSAC over 10
+    generator seeds and OpenCV's over 10 orders of the points err by 0.25
+    and 0.22 degrees on average, 1.09 and 1.26 at most. The port's largest
+    distance to the nearest seed was 0.33 degrees in rotation."""
+    g = {(i, j): (R, t, n) for i, j, R, t, n in got}
+    want = [{(i, j): (R, np.asarray(t).reshape(3), n) for i, j, R, t, n in run} for run in runs]
+    kept = set(g) & set(want[0])
+    assert len(want[0]) >= 3 and len(kept) >= 0.9 * len(want[0]), (sorted(g), sorted(want[0]))
+    for p in sorted(kept):
+        R, t, n = g[p]
+        assert abs(n - want[0][p][2]) <= 0.05 * want[0][p][2], (p, n, want[0][p][2])
+        assert isinstance(R, np.ndarray) and R.dtype == np.float64 and t.shape == (3,) and isinstance(n, int)
+        np.testing.assert_allclose(R @ R.T, np.eye(3), atol=1e-9)
+        assert abs(np.linalg.det(R) - 1) < 1e-9 and abs(np.linalg.norm(t) - 1) < 1e-9
+        theirs = [w[p] for w in want if p in w]
+        near = np.min([pose_difference(R, t, Rj, tj) for Rj, tj, _ in theirs], axis=0)
+        assert near[0] <= 0.5 and near[1] <= 2.0, (p, near)
+        worst = np.max([pose_errors(Rj, tj, c2w, *p) for Rj, tj, _ in theirs], axis=0)
+        err = pose_errors(R, t, c2w, *p)
+        assert err[0] <= worst[0] + 0.5 and err[1] <= worst[1] + 0.5, (p, err, worst)
+
+
+def test_two_view_matches_jax(scene_views):
+    """build_view_graph on the CPU on phase 19's 8 views and retrieval's pairs
+    (4 a view, as phase 19 runs it) against JAX's OpenCV one at 5 cv2 seeds:
+    check_edges' tolerances."""
+    img_dir, _, K, c2w = scene_views
     files = sorted(os.listdir(img_dir))
-    pairs = jret.pairs_from_retrieval(img_dir, files, 3)
-    got = seeded(ttv.build_view_graph, img_dir, files, pairs, K, 20)
-    want = seeded(jtv.build_view_graph, img_dir, files, pairs, K, 20)
-    assert len(want) >= 3 and [(g.i, g.j, g.num_inliers) for g in got] == [(g.i, g.j, g.num_inliers) for g in want]
-    for a, b in zip(got, want):
-        np.testing.assert_array_equal(a.R, b.R)
-        np.testing.assert_array_equal(a.t, b.t)
+    pairs = jret.pairs_from_retrieval(img_dir, files, 4)
+    got = ttv.build_view_graph(img_dir, files, pairs, K, 30, device="cpu")
+    runs = seeded_runs(jtv.build_view_graph, img_dir, files, pairs, K, 30)
+    check_edges([(g.i, g.j, g.R, g.t, g.num_inliers) for g in got],
+                [[(g.i, g.j, g.R, g.t, g.num_inliers) for g in run] for run in runs], c2w)
 
 
-def test_sfm_pipeline_matches_jax(plane_views, tmp_path):
-    """run_sfm_pipeline end to end: the same files, geometries, scores,
-    global poses (exact), view_graph.g2o and poses_bounds.npy."""
-    img_dir, K, _ = plane_views
-    got = seeded(tpipe.run_sfm_pipeline, img_dir, str(tmp_path / "t"), K, num_matches=3, min_inliers=20)
-    want = seeded(jpipe.run_sfm_pipeline, img_dir, str(tmp_path / "j"), K, num_matches=3, min_inliers=20)
-    assert got["files"] == want["files"] and got["scores"] == want["scores"]
-    assert [(g.i, g.j) for g in got["geometries"]] == [(g.i, g.j) for g in want["geometries"]]
-    assert want["poses_c2w"] is not None
-    np.testing.assert_array_equal(got["poses_c2w"], want["poses_c2w"])
-    assert (tmp_path / "t" / "view_graph.g2o").read_text() == (tmp_path / "j" / "view_graph.g2o").read_text()
-    np.testing.assert_array_equal(np.load(tmp_path / "t" / "poses_bounds.npy"),
-                                  np.load(tmp_path / "j" / "poses_bounds.npy"))
+def relative_rotation_errors(c2w, gt):
+    """test_sfm's measure: the mean over view pairs of the error of the
+    relative rotation between two global poses, in degrees."""
+    errs = []
+    for a in range(len(gt)):
+        for b in range(a + 1, len(gt)):
+            Rp = c2w[b][:3, :3].T @ c2w[a][:3, :3]
+            Rg = gt[b][:3, :3].T @ gt[a][:3, :3]
+            errs.append(np.degrees(np.linalg.norm(Rotation.from_matrix(Rp @ Rg.T).as_rotvec())))
+    return float(np.mean(errs))
 
 
-def test_extract_relative_poses_matches_jax(plane_views, tmp_path):
-    """rotmat_to_quat on every pivot branch, and the CLI's g2o against the
-    root script's extraction written by its own write_g2o (exact)."""
+def test_sfm_pipeline_matches_jax(scene_views, tmp_path):
+    """run_sfm_pipeline on the CPU end to end on 4 of phase 19's views against
+    JAX's at 5 cv2 seeds: the same files; the geometries within
+    check_edges' tolerances; >= 90% of JAX's (seed 0) scored pairs scored;
+    view_graph.g2o with a vertex per view and an edge per kept geometry;
+    poses_bounds.npy of JAX's shape with the same h, w, f and bounds
+    columns (exact); the global poses' mean relative rotation error at most
+    JAX's largest over the seeds + 0.5 degrees."""
+    _, img_dir, K, c2w = scene_views
+    got = tpipe.run_sfm_pipeline(img_dir, str(tmp_path / "t"), K, num_matches=3, min_inliers=20, device="cpu")
+    runs = seeded_runs(jpipe.run_sfm_pipeline, img_dir, str(tmp_path / "j"), K, num_matches=3, min_inliers=20)
+    assert got["files"] == runs[0]["files"]
+    check_edges([(g.i, g.j, g.R, g.t, g.num_inliers) for g in got["geometries"]],
+                [[(g.i, g.j, g.R, g.t, g.num_inliers) for g in run["geometries"]] for run in runs], c2w)
+    assert len(set(got["scores"]) & set(runs[0]["scores"])) >= 0.9 * len(runs[0]["scores"])
+    absolute, pairs, _ = tpa.read_g2o_file(str(tmp_path / "t" / "view_graph.g2o"))
+    assert absolute.shape == (4, 7) and len(pairs) == len(got["geometries"])
+    pb_t, pb_j = np.load(tmp_path / "t" / "poses_bounds.npy"), np.load(tmp_path / "j" / "poses_bounds.npy")
+    assert pb_t.shape == pb_j.shape == (4, 17)
+    hwf_bounds = [4, 9, 14, 15, 16]
+    np.testing.assert_array_equal(pb_t[:, hwf_bounds], pb_j[:, hwf_bounds])
+    gt = c2w[:4]
+    worst = max(relative_rotation_errors(run["poses_c2w"], gt) for run in runs)
+    assert relative_rotation_errors(got["poses_c2w"], gt) <= worst + 0.5
+
+
+def test_extract_relative_poses_matches_jax(scene_views, tmp_path):
+    """rotmat_to_quat on every pivot branch (exact); the CLI on the CPU on 4 of
+    phase 19's views against the root script's OpenCV extraction at 5 cv2
+    seeds: the same files, the edges within check_edges' tolerances, and
+    its g2o equal to the root script's write_g2o of the port's edges
+    (exact)."""
     for R in (*TIES.values(), rotation_about([0.2, -0.5, 0.9], 2.5), rotation_about([0.9, 0.1, 0.1], 3.0)):
         np.testing.assert_array_equal(textract.rotmat_to_quat(R), jextract.rotmat_to_quat(R))
-    img_dir, K, _ = plane_views
+    _, img_dir, K, c2w = scene_views
     fx = float(K[0, 0])
-    files, edges = seeded(textract.main, ["--image_dir", img_dir, "--out", str(tmp_path / "t.g2o"),
-                                          "--fx", str(fx)])
-    jfiles, jedges = seeded(jextract.extract_relative_poses, img_dir, K)
-    jextract.write_g2o(str(tmp_path / "j.g2o"), len(jfiles), jedges)
-    assert files == jfiles and len(edges) == len(jedges) >= 3
+    files, edges = textract.main(["--image_dir", img_dir, "--out", str(tmp_path / "t.g2o"), "--fx", str(fx),
+                                  "--device", "cpu", "--seed", "0"])
+    runs = seeded_runs(jextract.extract_relative_poses, img_dir, K)
+    assert files == runs[0][0]
+    check_edges(edges, [run[1] for run in runs], c2w)
+    jextract.write_g2o(str(tmp_path / "j.g2o"), len(files), edges)
     assert (tmp_path / "t.g2o").read_text() == (tmp_path / "j.g2o").read_text()
     absolute, pairs, rels = tpa.read_g2o_file(str(tmp_path / "t.g2o"))
     assert absolute.shape == (4, 7) and len(pairs) == len(edges)

@@ -202,9 +202,11 @@ def cli_arguments(path: Path) -> dict:
 @pytest.mark.parametrize("name", ["render_video", "eval_crop", "extract_relative_poses"])
 def test_cli_arguments_are_jax(name):
     """Each new CLI has the JAX script's arguments and defaults, and
-    --device (default cuda) where it renders."""
+    --device (default cuda); extract_relative_poses also --seed (default 0)
+    for its RANSAC draws, which OpenCV takes from its own generator."""
     got = cli_arguments(ROOT / "ggrt_official_torch" / "scripts" / f"{name}.py")
     want = cli_arguments(ROOT / "scripts" / f"{name}.py")
-    if name != "extract_relative_poses":
-        assert got.pop("--device") == ("'cuda'", None, None, None)
+    assert got.pop("--device") == ("'cuda'", None, None, None)
+    if name == "extract_relative_poses":
+        assert got.pop("--seed") == ("0", "int", None, None)
     assert got == want
