@@ -180,7 +180,10 @@ Phases; each one that fails stops the run with a non-zero exit:
              rasterizer's four. Outside the counts each is held against its
              plain version and float64 at CUDA's documented bounds (expf 2
              ulp, logf 1 ulp, the division correctly rounded; kernel and
-             torch's op at most twice that apart) and timed beside its bound.
+             torch's op at most twice that apart), on a view 4 bytes off
+             16-byte alignment bit-equal to the aligned run, and timed
+             beside its bound and its launch floor (an empty kernel on the
+             same grid, at the same input).
  17. observability: at pretrain_config() width (a GGRtModel from seed 0),
              320x448, 5 source views. (a) utils.Benchmarker(device="cuda")
              times 3 requests (it synchronises at entry and exit), then
@@ -1740,6 +1743,13 @@ def legacy_phase(tag: str, root: Path, device="cuda", tiny: bool = False) -> dic
 PROBE_ULP = {"exp": 2.0, "log": 1.0}
 
 
+def misaligned(x):
+    """A contiguous copy of x whose data lies 4 bytes off 16-byte alignment."""
+    import torch
+
+    return torch.empty(x.numel() + 1, device=x.device, dtype=x.dtype)[1:].view_as(x).copy_(x)
+
+
 def probe_checks(tag: str, device="cuda") -> dict:
     """Phase 16's probe kernels outside the counted run: each against its
     plain version and float64 on the probe's inputs, in ulps of the float32
@@ -1763,6 +1773,9 @@ def probe_checks(tag: str, device="cuda") -> dict:
         nbytes = 8 * x.numel()
         row["bound"] = bound(x.numel(), nbytes)
         if torch.device(device).type == "cuda":
+            # The kernel takes any contiguous float32 pointer: a view 4 bytes
+            # off 16-byte alignment gives the same bits.
+            row["misaligned_equal"] = bool(torch.equal(k.launch(misaligned(x)), got))
             row["ms"] = cuda_ms(lambda: k.launch(x), 20)
             row["plain_ms"] = cuda_ms(lambda: k.plain(x), 20)
             row["library_ms"] = cuda_ms(lambda: {"exp": torch.exp, "recip": torch.reciprocal, "log": torch.log}[name](x), 20)
@@ -3029,6 +3042,8 @@ def main() -> None:
     # they differ by at most its double (exp 4, log 2 ulp; the division 0).
     pc = probe_checks(tag)
     for name, row in pc.items():
+        if not row.get("misaligned_equal", True):
+            fail(f"probe: {name} on a misaligned view differs from the aligned run: {row}")
         if name == "recip":
             if not (row["rounded"] and row["vs_plain_ulp"] == 0):
                 fail(f"probe: 1/x is not correctly rounded or differs from torch's: {row}")
@@ -3211,7 +3226,7 @@ def main() -> None:
             "name": f"probe_{name}", "route": "cuda", "source": "ggrt_official_torch/csrc/precision_probe.cu",
             "replaces": f"tools/diag_exp_precision.py:{line}", "launches": n, "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound"][0], "bound_by": row["bound"][1],
-            "library_ms": row["library_ms"],
+            "library_ms": row["library_ms"], "floor_ms": row["floor_ms"],
         })
     if not (launches["serve"][0] and all(launches["train"][:3]) and all(launches["raster"])
             and launches["eval"][0] and all(launches["loop"][:3]) and all(launches["finetune"][:3])

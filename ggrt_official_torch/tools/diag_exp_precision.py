@@ -53,9 +53,9 @@ probe_exp = ProbeKernel("probe_exp", torch.exp)
 probe_recip = ProbeKernel("probe_recip", torch.reciprocal)
 probe_log = ProbeKernel("probe_log", torch.log)
 KERNELS = {"exp": probe_exp, "recip": probe_recip, "log": probe_log}
-# The same grid with an empty body, through the same ctypes path: the
-# launch floor under the three kernels' times (its plain version allocates
-# the output and computes nothing).
+# The same grid with an empty body, through the same ctypes path: launched
+# on a kernel's input, the launch floor under that kernel's time (its plain
+# version allocates the output and computes nothing).
 probe_floor = ProbeKernel("probe_empty", torch.empty_like)
 F64 = {"exp": np.exp, "recip": lambda v: 1.0 / v, "log": np.log}
 

@@ -724,6 +724,54 @@ def test_probe_kernel_matches_plain(cuda, name):
         assert probe.ulps(g, p.astype(np.float64)).max() <= 2 * PROBE_BOUND_ULP[name]
 
 
+def probe_values(name, n, device, seed=0):
+    """n float32 values of the probe's ranges, from numpy: exp's [-6, 0],
+    recip's (1e-4, 1]."""
+    lo, hi = {"exp": (-6.0, 0.0), "recip": (1e-4, 1.0)}[name]
+    return torch.tensor(np.random.default_rng(seed).uniform(lo, hi, n).astype(np.float32), device=device)
+
+
+@pytest.mark.parametrize("name", ["exp", "recip"])
+def test_probe_misaligned_view_matches_aligned(cuda, name):
+    """A contiguous view 4 bytes off 16-byte alignment gives the bits of an
+    aligned copy."""
+    from ggrt_official_torch.tools import diag_exp_precision as probe
+
+    k = probe.KERNELS[name]
+    for n in (65536, 4099, 2**20 + 3):
+        x = probe_values(name, n, cuda)
+        view = torch.empty(n + 1, device=cuda)[1:].copy_(x)
+        assert x.data_ptr() % 16 == 0 and view.data_ptr() % 16 == 4
+        launches = k.launches
+        want = k(x)
+        assert k.launches == launches + 1
+        assert torch.equal(k(view), want)
+
+
+@pytest.mark.parametrize("name", ["exp", "recip"])
+def test_probe_odd_sizes(cuda, name):
+    """At sizes that fill no block, part of one and some: 1/x equal to
+    float64's quotient rounded to float32 and to torch's op, expf within
+    CUDA's 2 ulp of float64."""
+    from ggrt_official_torch.tools import diag_exp_precision as probe
+
+    k = probe.KERNELS[name]
+    for n in (0, 1, 3, 5, 4099, 65535):
+        x = probe_values(name, n, cuda, seed=n)
+        got = k(x)
+        torch.cuda.synchronize()
+        assert got.shape == x.shape
+        if n == 0:
+            continue
+        xs, g, p = (a.cpu().numpy() for a in (x, got, k.plain(x)))
+        want = probe.F64[name](xs.astype(np.float64))
+        if name == "recip":
+            np.testing.assert_array_equal(g, want.astype(np.float32))
+            np.testing.assert_array_equal(g, p)
+        else:
+            assert probe.ulps(g, want).max() <= PROBE_BOUND_ULP[name], n
+
+
 def test_probe_wrapper_rejects_bad_input(cuda):
     """A float64 or strided card tensor is refused before any launch."""
     from ggrt_official_torch.tools import diag_exp_precision as probe

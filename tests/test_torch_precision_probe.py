@@ -15,6 +15,7 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
+from ggrt_official_torch.ops.cuda_kernel import CSRC, NVCC_FLAGS
 from ggrt_official_torch.tools import diag_exp_precision as probe
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -100,3 +101,37 @@ def test_wrappers_run_plain_on_the_cpu_and_refuse_other_devices():
     assert [k.launches for k in probe.KERNELS.values()] == before
     with pytest.raises(RuntimeError):
         probe.probe_exp(torch.empty(4, device="meta"))
+
+
+def test_probe_keeps_ieee_exp_and_division():
+    """The probe's source calls no fast-math intrinsic and its flags (the
+    compositors' NVCC_FLAGS) ask for no fast math, flushing or approximate
+    division: the expf and 1/x it measures are those whose few ulps
+    csrc/composite_cull.cuh's culling margin assumes."""
+    src = (CSRC / "precision_probe.cu").read_text()
+    for name in ("__expf", "__logf", "__fdividef", "__frcp_r", "__fdiv_r"):
+        assert name not in src, name
+    flags = " ".join(NVCC_FLAGS)
+    for flag in ("use_fast_math", "prec-div=false", "ftz=true"):
+        assert flag not in flags, flag
+
+
+def test_floor_and_probe_checks_on_the_cpu():
+    """The launch floor runs its plain version on the CPU and launches
+    nothing; chip_smoke's misaligned copy lies 4 bytes off 16-byte alignment
+    with the same values; phase 16's checks rehearse on the CPU (the plain
+    ops within CUDA's bounds, the division correctly rounded, no times)."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    x = torch.rand(3, 5)
+    launches = probe.probe_floor.launches
+    assert probe.probe_floor(x).shape == x.shape and probe.probe_floor.launches == launches
+    m = cs.misaligned(x)
+    assert m.data_ptr() % 16 == 4 and m.is_contiguous() and torch.equal(m, x)
+    pc = cs.probe_checks("cpu", device="cpu")
+    assert list(pc) == ["exp", "recip", "log"]
+    assert pc["recip"]["rounded"] and pc["recip"]["vs_plain_ulp"] == 0
+    for name in ("exp", "log"):
+        assert pc[name]["ulp"] <= cs.PROBE_ULP[name]
+    assert all(np.isnan(row["floor_ms"]) and "misaligned_equal" not in row for row in pc.values())
