@@ -183,7 +183,10 @@ Phases; each one that fails stops the run with a non-zero exit:
              torch's op at most twice that apart), on a view 4 bytes off
              16-byte alignment bit-equal to the aligned run, and timed
              beside its bound and its launch floor (an empty kernel on the
-             same grid, at the same input).
+             same grid and launch path, at the same input); log (launched
+             as a programmatic dependent launch) also beside its first
+             design, a <<<>>> launch of the same grid that must give the
+             same bits, and that one's floor.
  17. observability: at pretrain_config() width (a GGRtModel from seed 0),
              320x448, 5 source views. (a) utils.Benchmarker(device="cuda")
              times 3 requests (it synchronises at entry and exit), then
@@ -1779,18 +1782,27 @@ def probe_checks(tag: str, device="cuda") -> dict:
             row["ms"] = cuda_ms(lambda: k.launch(x), 20)
             row["plain_ms"] = cuda_ms(lambda: k.plain(x), 20)
             row["library_ms"] = cuda_ms(lambda: {"exp": torch.exp, "recip": torch.reciprocal, "log": torch.log}[name](x), 20)
-            # The launch floor: an empty kernel on the same grid, through the
-            # same ctypes path and wrapper, timed as the kernel is.
-            row["floor_ms"] = cuda_ms(lambda: probe.probe_floor.launch(x), 20)
+            # The launch floor: an empty kernel on the same grid and launch
+            # path, through the same ctypes path and wrapper, timed as the
+            # kernel is.
+            row["floor_ms"] = cuda_ms(lambda: probe.FLOORS[name].launch(x), 20)
+            if name == "log":
+                # log's first design (a <<<>>> launch of the same grid; the
+                # same bits) and its floor, timed beside the kept
+                # programmatic launch.
+                row["first_equal"] = bool(torch.equal(probe.probe_log_plain.launch(x), got))
+                row["first_ms"] = cuda_ms(lambda: probe.probe_log_plain.launch(x), 20)
+                row["first_floor_ms"] = cuda_ms(lambda: probe.probe_floor.launch(x), 20)
         else:
             row["ms"] = row["plain_ms"] = row["library_ms"] = row["floor_ms"] = float("nan")
         out[name] = row
         print(f"probe: {name} on {tuple(x.shape)}: kernel {row['ulp']!r} ulp, torch {row['plain_ulp']!r} ulp of float64 "
               f"(bound {PROBE_ULP.get(name, 'correctly rounded')}); kernel against torch max abs "
               f"{row['max_abs_err']!r} ({row['vs_plain_ulp']!r} ulp); {row['ms']!r} ms per launch (20 launches, CUDA events), launch "
-              f"floor (an empty kernel on the same grid) {row['floor_ms']!r}, plain "
-              f"{row['plain_ms']!r}, torch's op {row['library_ms']!r}, bound {row['bound'][0]!r} ms by {row['bound'][1]} ({nbytes} bytes at 3.35 TB/s) "
-              f"{tag}", flush=True)
+              f"floor (an empty kernel on the same grid and launch path) {row['floor_ms']!r}, plain "
+              f"{row['plain_ms']!r}, torch's op {row['library_ms']!r}, bound {row['bound'][0]!r} ms by {row['bound'][1]} ({nbytes} bytes at 3.35 TB/s)"
+              + (f"; first design (<<<>>> launch, bit-equal {row['first_equal']}) {row['first_ms']!r} on a floor of {row['first_floor_ms']!r}"
+                 if "first_ms" in row else "") + f" {tag}", flush=True)
     return out
 
 
@@ -3044,6 +3056,8 @@ def main() -> None:
     for name, row in pc.items():
         if not row.get("misaligned_equal", True):
             fail(f"probe: {name} on a misaligned view differs from the aligned run: {row}")
+        if not row.get("first_equal", True):
+            fail(f"probe: log's first design (<<<>>> launch) differs from probe_log: {row}")
         if name == "recip":
             if not (row["rounded"] and row["vs_plain_ulp"] == 0):
                 fail(f"probe: 1/x is not correctly rounded or differs from torch's: {row}")

@@ -18,24 +18,34 @@
 //   out (n,) float32
 // The main path calls each at (512, 128) (exp, recip) and (8, 128) (log).
 //
-// Bound. Bytes: each element read once and written once, 8·n bytes; at
-// n = 65,536 that is 0.16 µs at 3.35 TB/s, far below a launch's ~2 µs.
-// The operations (tens of instructions per element) are no nearer. So
-// what there is to gain is in the grid the launch dispatches.
+// Bound: the launch floor. Bytes: each element read once and written
+// once, 8·n bytes; at n = 65,536 that is 0.16 µs at 3.35 TB/s (at log's
+// 1,024, 0.0024 µs), far below a launch's ~2 µs. The operations (tens of
+// instructions per element) are no nearer. What bounds each kernel is the
+// time the card takes to start a grid after the one before it and to
+// retire it; the body (one load, the function, one store) adds ~0.25 µs.
 //
 // Design: one thread per element, 256 a block, consecutive threads on
-// consecutive words (coalesced), no loop, no shared memory. A grid of
-// float4 loads and stores (4 or 8 elements a thread, grid-stride over at
-// most one wave of blocks, a scalar tail and a scalar body for unaligned
-// pointers) was timed against it at (512, 128) on an NVIDIA H100 80GB
-// HBM3 at 700 W: its empty body dispatches up to 0.1 µs faster, but every
-// float4 shape took longer (exp 2.46-2.64 µs, 1/x 2.66-2.96) than one
-// thread per element (2.31 / 2.36): the body's time follows the elements
-// each thread works through, not the width of its accesses. One thread per
-// element at 512 or 1,024 a block gained nothing beyond the run-to-run
-// spread, at 128 it lost. PERF.md holds the sweep. probe_empty launches the same
-// grid with a body that does nothing: its time, at each kernel's input, is
-// the floor that kernel stands on.
+// consecutive words (coalesced), no loop, no shared memory. exp and 1/x
+// take a plain <<<>>> launch. log is launched with programmatic dependent
+// launch (cudaLaunchKernelEx, cudaLaunchAttributeProgrammaticStreamSerialization):
+// the card may start its grid while the grid before it in the stream
+// drains, so the floor itself shrinks. Its threads run griddepcontrol.wait
+// before any access through x or out (the grid before may still be
+// writing x) and then griddepcontrol.launch_dependents, so the next such
+// launch may start as early. At (8, 128) on an NVIDIA H100 80GB HBM3 at
+// 700 W (20 launches a reading, PERF.md holds the sweep and its command):
+// 1.148 µs on a floor of 0.857 against 2.250 on 1.985 with <<<>>> (spread
+// 0.094), and 3.108 against 4.303 µs for a copy_ into x followed by log.
+// 1 x 1,024 and 8 x 128 gained nothing beyond the spread on either path.
+// For exp and 1/x at (512, 128) a float4 grid-stride body (4 or 8
+// elements a thread) dispatched up to 0.1 µs faster but took longer (exp
+// 2.46-2.64 µs against 2.31) and 128-1,024 threads a block gained nothing
+// beyond the spread. probe_log_plain is log's first design (the same grid,
+// a <<<>>> launch), kept to be timed beside it. probe_empty and
+// probe_empty_pdl launch the same grid on each path with a body that does
+// nothing: their time, at each kernel's input, is the floor that kernel
+// stands on. probe_late_copy exists to test the wait (see its comment).
 
 #include <cuda_runtime.h>
 
@@ -54,37 +64,98 @@ struct Log {
 };
 struct Empty {};
 
-template <class Op>
+// Pdl: the kernel is launched with programmatic stream serialization, so
+// it may start while the grid before it in the stream is still draining.
+// griddepcontrol.wait then holds every thread until that grid has finished
+// and its writes are visible; no access through x or out comes before it.
+// launch_dependents lets the next such launch start early in turn (it too
+// waits for this grid's end before it touches memory).
+template <class Op, bool Pdl>
 __global__ void per_element_kernel(const float* __restrict__ x, float* __restrict__ out, long long n) {
+  if constexpr (Pdl) {
+    asm volatile("griddepcontrol.wait;" ::: "memory");
+    asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+  }
   if constexpr (!std::is_same_v<Op, Empty>) {
     const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (i < n) out[i] = Op::f(x[i]);
   }
 }
 
-template <class Op>
+// One thread per element, 256 a block. Returns the launch's error code:
+// cudaLaunchKernelEx's for a programmatic launch, cudaGetLastError() after
+// a <<<>>> launch.
+template <class Op, bool Pdl>
 int launch(const float* x, float* out, long long n, void* stream) {
-  const int threads = 256;
+  constexpr int threads = 256;
   const long long blocks = (n + threads - 1) / threads;
-  if (blocks > 0) per_element_kernel<Op><<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(x, out, n);
-  return (int)cudaGetLastError();
+  if (blocks == 0) return (int)cudaGetLastError();
+  if constexpr (Pdl) {
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[0].val.programmaticStreamSerializationAllowed = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)blocks);
+    cfg.blockDim = dim3((unsigned)threads);
+    cfg.dynamicSmemBytes = 0;
+    cfg.stream = (cudaStream_t)stream;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    return (int)cudaLaunchKernelEx(&cfg, per_element_kernel<Op, true>, x, out, n);
+  } else {
+    per_element_kernel<Op, false><<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(x, out, n);
+    return (int)cudaGetLastError();
+  }
+}
+
+// A writer that a programmatic launch behind it would race without
+// griddepcontrol.wait: every block first lets the next grid in the stream
+// start (launch_dependents), then idles ~50 µs on the global timer, and
+// only then copies src into x. A dependent that read x before its wait
+// would read what x held before this copy.
+__global__ void late_copy_kernel(const float* __restrict__ src, float* __restrict__ x, long long n) {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+  unsigned long long t0, t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t0));
+  do {
+    __nanosleep(1000);
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  } while (t - t0 < 50000ull);
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) x[i] = src[i];
 }
 
 }  // namespace
 
-// Each launches on `stream` and returns cudaGetLastError() after the launch.
+// Each launches on `stream` and returns the launch's error code.
 extern "C" int probe_exp(const float* x, float* out, long long n, void* stream) {
-  return launch<Exp>(x, out, n, stream);
+  return launch<Exp, false>(x, out, n, stream);
 }
 
 extern "C" int probe_recip(const float* x, float* out, long long n, void* stream) {
-  return launch<Recip>(x, out, n, stream);
+  return launch<Recip, false>(x, out, n, stream);
 }
 
 extern "C" int probe_log(const float* x, float* out, long long n, void* stream) {
-  return launch<Log>(x, out, n, stream);
+  return launch<Log, true>(x, out, n, stream);
+}
+
+extern "C" int probe_log_plain(const float* x, float* out, long long n, void* stream) {
+  return launch<Log, false>(x, out, n, stream);
 }
 
 extern "C" int probe_empty(const float* x, float* out, long long n, void* stream) {
-  return launch<Empty>(x, out, n, stream);
+  return launch<Empty, false>(x, out, n, stream);
+}
+
+extern "C" int probe_empty_pdl(const float* x, float* out, long long n, void* stream) {
+  return launch<Empty, true>(x, out, n, stream);
+}
+
+// src (n,) float32 copied into x (n,) ~50 µs after the grid starts, on a
+// <<<>>> launch of 256 a block (late_copy_kernel).
+extern "C" int probe_late_copy(const float* src, float* x, long long n, void* stream) {
+  const long long blocks = (n + 255) / 256;
+  if (blocks > 0) late_copy_kernel<<<(unsigned)blocks, 256, 0, (cudaStream_t)stream>>>(src, x, n);
+  return (int)cudaGetLastError();
 }

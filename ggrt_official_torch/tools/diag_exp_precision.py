@@ -7,7 +7,9 @@ compositors' flags, so the numbers are those of the expf and logf that
 csrc/composite_cull.cuh's culling margin assumes ("covers expf's and
 logf's few ulps"). Each wrapper launches its kernel for a CUDA tensor and
 counts the launch, runs its plain version (torch.exp, torch.reciprocal,
-torch.log) for a CPU tensor, and raises on any other device.
+torch.log) for a CPU tensor, and raises on any other device. log's kernel
+is a programmatic dependent launch, exp's and 1/x's a <<<>>> launch
+(csrc/precision_probe.cu says why).
 
     python -m ggrt_official_torch.tools.diag_exp_precision            # on the card
     python -m ggrt_official_torch.tools.diag_exp_precision --device cpu
@@ -53,10 +55,16 @@ probe_exp = ProbeKernel("probe_exp", torch.exp)
 probe_recip = ProbeKernel("probe_recip", torch.reciprocal)
 probe_log = ProbeKernel("probe_log", torch.log)
 KERNELS = {"exp": probe_exp, "recip": probe_recip, "log": probe_log}
-# The same grid with an empty body, through the same ctypes path: launched
-# on a kernel's input, the launch floor under that kernel's time (its plain
-# version allocates the output and computes nothing).
+# log's first design: the same grid on a <<<>>> launch, timed beside probe_log
+# on probe_floor.
+probe_log_plain = ProbeKernel("probe_log_plain", torch.log)
+# The same grid with an empty body, through the same ctypes path and launch
+# path (log's is a programmatic dependent launch): launched on a kernel's
+# input, the launch floor under that kernel's time (the plain version
+# allocates the output and computes nothing).
 probe_floor = ProbeKernel("probe_empty", torch.empty_like)
+probe_floor_pdl = ProbeKernel("probe_empty_pdl", torch.empty_like)
+FLOORS = {"exp": probe_floor, "recip": probe_floor, "log": probe_floor_pdl}
 F64 = {"exp": np.exp, "recip": lambda v: 1.0 / v, "log": np.log}
 
 

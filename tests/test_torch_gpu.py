@@ -726,12 +726,12 @@ def test_probe_kernel_matches_plain(cuda, name):
 
 def probe_values(name, n, device, seed=0):
     """n float32 values of the probe's ranges, from numpy: exp's [-6, 0],
-    recip's (1e-4, 1]."""
-    lo, hi = {"exp": (-6.0, 0.0), "recip": (1e-4, 1.0)}[name]
+    recip's and log's (1e-4, 1]."""
+    lo, hi = {"exp": (-6.0, 0.0), "recip": (1e-4, 1.0), "log": (1e-4, 1.0)}[name]
     return torch.tensor(np.random.default_rng(seed).uniform(lo, hi, n).astype(np.float32), device=device)
 
 
-@pytest.mark.parametrize("name", ["exp", "recip"])
+@pytest.mark.parametrize("name", ["exp", "recip", "log"])
 def test_probe_misaligned_view_matches_aligned(cuda, name):
     """A contiguous view 4 bytes off 16-byte alignment gives the bits of an
     aligned copy."""
@@ -748,11 +748,11 @@ def test_probe_misaligned_view_matches_aligned(cuda, name):
         assert torch.equal(k(view), want)
 
 
-@pytest.mark.parametrize("name", ["exp", "recip"])
+@pytest.mark.parametrize("name", ["exp", "recip", "log"])
 def test_probe_odd_sizes(cuda, name):
     """At sizes that fill no block, part of one and some: 1/x equal to
     float64's quotient rounded to float32 and to torch's op, expf within
-    CUDA's 2 ulp of float64."""
+    CUDA's 2 ulp of float64, logf within its 1 ulp."""
     from ggrt_official_torch.tools import diag_exp_precision as probe
 
     k = probe.KERNELS[name]
@@ -770,6 +770,85 @@ def test_probe_odd_sizes(cuda, name):
             np.testing.assert_array_equal(g, p)
         else:
             assert probe.ulps(g, want).max() <= PROBE_BOUND_ULP[name], n
+
+
+def test_probe_log_special_values(cuda):
+    """logf at IEEE's special points equals torch.log on the card: 0 and -0
+    give -inf, a negative number and NaN give NaN, +inf gives +inf, 1 gives
+    0, and the smallest denormal (no flush to zero) its finite log."""
+    from ggrt_official_torch.tools import diag_exp_precision as probe
+
+    tiny = np.float32(np.finfo(np.float32).smallest_subnormal)
+    vals = np.array([0.0, -0.0, -1.0, -tiny, np.nan, np.inf, 1.0, tiny, 2 * tiny], dtype=np.float32)
+    x = torch.tensor(vals, device=cuda)
+    got, want = probe.probe_log(x), torch.log(x)
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+    g = got.cpu().numpy()
+    assert np.isneginf(g[:2]).all() and np.isnan(g[2:5]).all() and g[5] == np.inf and g[6] == 0
+    assert probe.ulps(g[7:], np.log(vals[7:].astype(np.float64))).max() <= 1.0
+
+
+def test_probe_log_waits_for_the_write_before_it(cuda):
+    """probe_log (a programmatic dependent launch, which may start before
+    the grid ahead of it ends) right after each of 50 writes into its
+    input, in one stream with no synchronise, reads what was written: log
+    of probe_log's own output (its grid lets the next programmatic launch
+    start early); a copy_ of a numpy draw (the first queued behind a ~10 ms
+    spin kernel); an integer-valued matmul with out= (exact sums). Each
+    result is within logf's 1 ulp of the float64 log of the written values.
+    (These grids ahead end before the next one reads, so a build without
+    griddepcontrol.wait passes this too on an H100;
+    test_probe_log_waits_for_a_late_writer is the one it fails.)"""
+    from ggrt_official_torch.tools import diag_exp_precision as probe
+
+    def within_1ulp(got, written):
+        return probe.ulps(got.cpu().numpy(), np.log(written.cpu().numpy().astype(np.float64))).max() <= 1.0
+
+    rng = np.random.default_rng(15)
+    xs = [torch.tensor(np.exp(rng.uniform(2.0, 80.0, (8, 128))).astype(np.float32), device=cuda) for _ in range(50)]
+    torch.cuda.synchronize()
+    chain = []
+    for x0 in xs:
+        y1 = probe.probe_log(x0)
+        chain.append((x0, y1, probe.probe_log(y1)))
+    assert all(within_1ulp(y1, x0) and within_1ulp(y2, y1) for x0, y1, y2 in chain)
+    ys = [torch.tensor(rng.uniform(1e-4, 1.0, (8, 128)).astype(np.float32), device=cuda) for _ in range(50)]
+    x = torch.empty(8, 128, device=cuda)
+    torch.cuda._sleep(20_000_000)
+    outs = [probe.probe_log(x.copy_(y)) for y in ys]
+    assert all(within_1ulp(o, y) for y, o in zip(ys, outs))
+    k = 1 << 16
+    b = torch.tensor(rng.integers(1, 4, (k, 128)).astype(np.float32), device=cuda)
+    a_s = [torch.tensor(rng.integers(1, 4, (8, k)).astype(np.float32), device=cuda) for _ in range(50)]
+    torch.cuda.synchronize()
+    outs = [probe.probe_log(torch.matmul(a, b, out=x)) for a in a_s]
+    b64 = b.cpu().numpy().astype(np.float64)
+    for a, o in zip(a_s, outs):
+        sums = a.cpu().numpy().astype(np.float64) @ b64
+        assert probe.ulps(o.cpu().numpy(), np.log(sums)).max() <= 1.0
+
+
+def test_probe_log_waits_for_a_late_writer(cuda):
+    """probe_log launched right behind probe_late_copy, a writer that lets
+    the next grid start at once and writes x only ~50 µs later, reads what
+    the writer wrote, not what x held before: 20 rounds, each with fresh
+    old and new values from numpy and no synchronise between the write and
+    the read, each result within logf's 1 ulp of the float64 log of the new
+    values. A build without griddepcontrol.wait reads the old values."""
+    from ggrt_official_torch.ops.cuda_kernel import LONG, PTR, CudaKernel
+    from ggrt_official_torch.tools import diag_exp_precision as probe
+
+    late_copy = CudaKernel("precision_probe.cu", "probe_late_copy", [PTR, PTR, LONG])
+    rng = np.random.default_rng(151)
+    for _ in range(20):
+        old, new = (torch.tensor(rng.uniform(1e-4, 1.0, (8, 128)).astype(np.float32), device=cuda) for _ in range(2))
+        x = old.clone()
+        torch.cuda.synchronize()
+        late_copy.run(x.device, new.data_ptr(), x.data_ptr(), x.numel())
+        got = probe.probe_log(x)
+        assert torch.equal(x, new)
+        ulp = probe.ulps(got.cpu().numpy(), np.log(new.cpu().numpy().astype(np.float64))).max()
+        assert ulp <= 1.0, ulp
 
 
 def test_probe_wrapper_rejects_bad_input(cuda):

@@ -6,6 +6,7 @@ pl.pallas_call(..., interpret=True) on the JAX tool's own inputs. Then the
 probe's main on the CPU, and the wrappers' device rule.
 """
 import importlib.util
+import re
 from pathlib import Path
 
 import jax
@@ -116,6 +117,55 @@ def test_probe_keeps_ieee_exp_and_division():
         assert flag not in flags, flag
 
 
+def body(src: str, opener: str) -> str:
+    """The text between the braces of the first block after the regex
+    `opener` (a function's signature, an `if`)."""
+    start = src.index("{", re.search(opener, src).end())
+    depth = 0
+    for i in range(start, len(src)):
+        depth += {"{": 1, "}": -1}.get(src[i], 0)
+        if depth == 0:
+            return src[start + 1:i]
+    raise AssertionError(f"unbalanced braces after {opener}")
+
+
+def test_log_waits_before_it_reads_and_returns_the_launch_error():
+    """probe_log is a programmatic dependent launch, so the grid before it
+    may still be writing x when it starts. In the source: the kernel's
+    programmatic branch runs griddepcontrol.wait before the first access
+    through x or out; launch's programmatic branch sets programmatic stream
+    serialization and returns cudaLaunchKernelEx's result, and every return
+    of launch is a launch's error code; probe_log and probe_empty_pdl return
+    launch's result on that path, the other entry points on the <<<>>> one.
+    probe_late_copy, the card test's writer, lets the next grid start
+    before it writes x."""
+    src = (CSRC / "precision_probe.cu").read_text()
+    pdl_if = r"if\s+constexpr\s*\(\s*Pdl\s*\)"
+    kernel = body(src, r"__global__\s+void\s+per_element_kernel\s*\(")
+    wait = re.search(r"griddepcontrol\.wait|cudaGridDependencySynchronize", kernel)
+    access = re.search(r"\b(x|out)\s*\[", kernel)
+    assert wait and access and wait.start() < access.start()
+    assert wait.group() in body(kernel, pdl_if)
+    launch = body(src, r"\bint\s+launch\s*\(")
+    pdl = body(launch, pdl_if)
+    assert re.search(r"\.id\s*=\s*cudaLaunchAttributeProgrammaticStreamSerialization\s*;", pdl)
+    assert re.search(r"\.programmaticStreamSerializationAllowed\s*=\s*1\s*;", pdl)
+    assert re.search(r"\breturn\s*(\(int\)\s*)?cudaLaunchKernelEx\s*\(", pdl)
+    returns = re.findall(r"\breturn\s*(?:\(int\)\s*)?(\w+)\s*\(", launch)
+    assert returns and set(returns) <= {"cudaLaunchKernelEx", "cudaGetLastError"}, returns
+    want = {"probe_exp": "false", "probe_recip": "false", "probe_log": "true", "probe_log_plain": "false",
+            "probe_empty": "false", "probe_empty_pdl": "true"}
+    for entry, pdl_path in want.items():
+        call = re.fullmatch(r"\s*return\s+launch\s*<\s*\w+\s*,\s*(true|false)\s*>\s*\([^;]*\)\s*;\s*",
+                            body(src, rf'extern\s+"C"\s+int\s+{entry}\s*\('))
+        assert call and call.group(1) == pdl_path, entry
+    writer = body(src, r"__global__\s+void\s+late_copy_kernel\s*\(")
+    assert writer.index("griddepcontrol.launch_dependents") < re.search(r"\bx\s*\[", writer).start()
+    assert probe.FLOORS == {"exp": probe.probe_floor, "recip": probe.probe_floor, "log": probe.probe_floor_pdl}
+    assert (probe.probe_log.symbol, probe.probe_log_plain.symbol, probe.probe_floor_pdl.symbol) == (
+        "probe_log", "probe_log_plain", "probe_empty_pdl")
+
+
 def test_floor_and_probe_checks_on_the_cpu():
     """The launch floor runs its plain version on the CPU and launches
     nothing; chip_smoke's misaligned copy lies 4 bytes off 16-byte alignment
@@ -125,8 +175,9 @@ def test_floor_and_probe_checks_on_the_cpu():
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
     x = torch.rand(3, 5)
-    launches = probe.probe_floor.launches
-    assert probe.probe_floor(x).shape == x.shape and probe.probe_floor.launches == launches
+    for floor in (probe.probe_floor, probe.probe_floor_pdl):
+        launches = floor.launches
+        assert floor(x).shape == x.shape and floor.launches == launches
     m = cs.misaligned(x)
     assert m.data_ptr() % 16 == 4 and m.is_contiguous() and torch.equal(m, x)
     pc = cs.probe_checks("cpu", device="cpu")
