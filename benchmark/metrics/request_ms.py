@@ -1,0 +1,5 @@
+"""Request latency (ms): the whole window over the requests completed in it."""
+
+
+def read(rec):
+    return rec["window_s"] * 1e3 / rec["items"]
