@@ -2441,7 +2441,7 @@ def sfm_phase(tag: str, root: Path, device="cuda") -> dict:
 
     # One image's SIFT and one pair's geometry under torch.profiler: device
     # time against wall time, the launches, and each stage's host and device
-    # time (the record_function ranges in sift.py and essential.py).
+    # time (the spans in sift.py and essential.py, `ggrt.*` ranges here).
     if dev.type == "cuda":
         from torch.profiler import ProfilerActivity, profile
 
@@ -2456,7 +2456,7 @@ def sfm_phase(tag: str, root: Path, device="cuda") -> dict:
             show_profile(prof, what, wall, tag)
             avg = prof.key_averages()
             launches = sum(e.count for e in avg if "LaunchKernel" in e.key)
-            stages = [e for e in avg if e.key.startswith(("sift.", "ransac.", "recover_pose"))]
+            stages = [e for e in avg if e.key.startswith(("ggrt.sift.", "ggrt.ransac.", "ggrt.recover_pose"))]
             print(f"  {launches} kernel launches; stages (host ms, device ms): " + ", ".join(
                 f"{e.key} ({e.cpu_time_total / 1e3:.2f}, {getattr(e, 'device_time_total', 0) / 1e3:.2f})"
                 for e in stages), flush=True)

@@ -14,6 +14,7 @@ from torch import nn
 
 from ..config import GGRtConfig
 from ..losses.photometric import photometric_decay_loss
+from ..utils.tracing import span
 from ..weights import init_flax_defaults
 from .iponet import IPONet, IPONetOutput
 from .pixelsplat import PixelSplat
@@ -48,6 +49,7 @@ class GGRtModel(nn.Module):
         self.pose_learner.to(device)
         self.gaussian = PixelSplat(cfg.encoder, cfg.decoder, device=device, generator=generator)
 
+    @span("iponet", device=True)
     def iponet(self, target_image, ref_imgs, target_camera, ref_cameras, min_depth, max_depth,
                compute_sfm_loss: bool = True):
         """Run IPO-Net and, when `compute_sfm_loss`, the photometric SfM loss
@@ -65,10 +67,11 @@ class GGRtModel(nn.Module):
                                               min_depth=min_depth, max_depth=max_depth)
         sfm = None
         if compute_sfm_loss:
-            sfm = photometric_decay_loss(
-                tgt, refs, out.inv_depths, target_K, ref_K, out.rel_poses,
-                valid_mask=self.cfg.train.sfm_valid_mask, oob_weight=self.cfg.train.sfm_oob_weight,
-            )
+            with span("sfm_loss", device=True):
+                sfm = photometric_decay_loss(
+                    tgt, refs, out.inv_depths, target_K, ref_K, out.rel_poses,
+                    valid_mask=self.cfg.train.sfm_valid_mask, oob_weight=self.cfg.train.sfm_oob_weight,
+                )
         return out.inv_depths, out.rel_poses[0], sfm, out.fmap
 
     def pose_teacher_render(self, batch, cams_c2w, global_step):

@@ -13,6 +13,7 @@ import torch
 from torch import nn
 
 from ..config import DecoderCfg, EncoderCfg
+from ..utils.tracing import span
 from ..weights import init_flax_defaults
 from .decoder_splatting import DecoderOutput, DecoderSplatting
 from .encoder_epipolar import EncoderEpipolar
@@ -65,6 +66,7 @@ class PixelSplat(nn.Module):
             torch.backends.cuda.matmul.allow_tf32 = False
         self.to(device)
 
+    @span("encoder", device=True)
     def encode_pairs(self, context: dict, global_step, deterministic: bool = False,
                      uniforms: Optional[torch.Tensor] = None, order: Optional[Sequence[int]] = None,
                      features: Optional[torch.Tensor] = None,

@@ -21,6 +21,7 @@ import torch
 
 from ...geometry.depth import depth_to_relative_disparity
 from ...geometry.projection import homogenize_points, invert_se3
+from ...utils.tracing import span
 from . import composite, cuda_composite, reference, tiling
 from .projection import ProjectedGaussians, project_gaussians
 
@@ -52,17 +53,19 @@ def _render_one(
             extrinsics, intrinsics, near, far, image_shape, background,
             tile_shape=(th, tw),
         )
-    pg = project_gaussians(
-        means, covariances, sh_coeffs, opacities,
-        extrinsics, intrinsics, near, far, image_shape,
-    )
+    with span("raster.project"):
+        pg = project_gaussians(
+            means, covariances, sh_coeffs, opacities,
+            extrinsics, intrinsics, near, far, image_shape,
+        )
     # Binning is a discrete choice (which Gaussians land on which tile, in
     # what order) and carries no gradient.
-    binning = BINNINGS[binning_mode](
-        ProjectedGaussians(*(x.detach() for x in pg)),
-        image_shape, max_dup=max_dup, max_per_tile=max_per_tile,
-        tile_h=th, tile_w=tw,
-    )
+    with span("raster.bin"):
+        binning = BINNINGS[binning_mode](
+            ProjectedGaussians(*(x.detach() for x in pg)),
+            image_shape, max_dup=max_dup, max_per_tile=max_per_tile,
+            tile_h=th, tile_w=tw,
+        )
     if backend == "tiled":
         return composite.composite_tiles(
             pg, binning, background, image_shape, tile_h=th, tile_w=tw, tile_chunk=tile_chunk
@@ -113,17 +116,20 @@ def render(
     check_backend(backend)
     if binning_mode not in BINNINGS:
         raise ValueError(f"unknown binning mode {binning_mode!r}; one of {tuple(BINNINGS)}")
-    if scale_invariant:
-        extrinsics, covariances, means, near, far = _rescale(extrinsics, covariances, means, near, far)
+    # A span inside the body, not a decorator: a wrapper's arguments would
+    # keep the caller's temporaries alive past the rescale below.
+    with span("raster"):
+        if scale_invariant:
+            extrinsics, covariances, means, near, far = _rescale(extrinsics, covariances, means, near, far)
 
-    return torch.stack([
-        _render_one(
-            extrinsics[i], intrinsics[i], near[i], far[i], background[i],
-            means[i], covariances[i], sh_coeffs[i], opacities[i],
-            image_shape, backend, max_dup, max_per_tile, tile_chunk, binning_mode, tile_shape,
-        )
-        for i in range(extrinsics.shape[0])
-    ])
+        return torch.stack([
+            _render_one(
+                extrinsics[i], intrinsics[i], near[i], far[i], background[i],
+                means[i], covariances[i], sh_coeffs[i], opacities[i],
+                image_shape, backend, max_dup, max_per_tile, tile_chunk, binning_mode, tile_shape,
+            )
+            for i in range(extrinsics.shape[0])
+        ])
 
 
 def choose_max_per_tile(

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ...constants import device_constant
+from ...utils.tracing import span
 from ..cuda_kernel import INT, PTR, CudaKernel, check_tensors
 from .projection import ALPHA_MAX, ALPHA_MIN, T_EPS, ProjectedGaussians
 from .segment_sum import scatter_add_rows
@@ -397,8 +398,10 @@ def composite_tiles(
     """Composite every tile and assemble the (3, h, w) image."""
     h, w = image_shape
     nty, ntx = binning.num_tiles_y, binning.num_tiles_x
-    records, colors, counts = build_records(pg, binning, tile_h, tile_w)
-    acc, tfin = CompositeCore.apply(records, colors, counts, tile_h, tile_w)
+    with span("raster.records"):
+        records, colors, counts = build_records(pg, binning, tile_h, tile_w)
+    with span("raster.composite"):
+        acc, tfin = CompositeCore.apply(records, colors, counts, tile_h, tile_w)
     img = acc[..., :3].transpose(1, 2) + tfin.transpose(1, 2) * background[None, :, None]
     img = img.reshape(nty, ntx, 3, tile_h, tile_w).permute(2, 0, 3, 1, 4)
     img = img.reshape(3, nty * tile_h, ntx * tile_w)

@@ -51,6 +51,7 @@ import numpy as np
 import torch
 
 from ..constants import device_constant
+from ..utils.tracing import span
 
 # Nistér's monomial order for the 10x20 system: the first ten are
 # eliminated; rows 4-9 lead with x²z, x², y²z, y², xyz, xy.
@@ -273,11 +274,11 @@ def find_essential_mat(pts1: torch.Tensor, pts2: torch.Tensor, K, prob: float = 
     best_E = best_mask = None
     while done < niters:
         b = min(ROUND, niters - done)
-        with torch.profiler.record_function("ransac.five_point"):
+        with span("ransac.five_point"):
             idx = torch.rand(b, n, generator=generator, device=dev).topk(5, dim=1).indices
             E, ok = five_point(q1[idx], q2[idx])
             E = E.reshape(-1, 3, 3)
-        with torch.profiler.record_function("ransac.score"):
+        with span("ransac.score"):
             inl = (sampson_errors(E, q1, q2) <= t) & ok.reshape(-1, 1)
             # OpenCV's loop, replayed over the round's models in draw order:
             # the best so far (first of equal counts), the iteration count
@@ -367,7 +368,7 @@ def recover_pose(E: torch.Tensor, pts1: torch.Tensor, pts2: torch.Tensor, K, mas
     """OpenCV's recoverPose: (count, R (3, 3), t (3,), mask (n,) bool) on the
     points' device, count a 0-d tensor (the points in front of both cameras
     and nearer than DISTANCE_THRESH, within `mask`)."""
-    with torch.profiler.record_function("recover_pose"):
+    with span("recover_pose"):
         return _recover_pose(E, pts1, pts2, K, mask)
 
 

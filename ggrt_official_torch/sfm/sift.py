@@ -52,6 +52,7 @@ import torch.nn.functional as F
 
 from ..constants import device_constant
 from ..data.image_io import _gaussian_kernel, _linear_taps
+from ..utils.tracing import span
 
 N_LAYERS = 3
 SIGMA = 1.6
@@ -483,13 +484,13 @@ def detect_and_compute(gray, nfeatures: int = 0, device="cuda"):
     img = img.to(dev, non_blocking=True).to(torch.float32)
     if img.ndim != 2:
         raise ValueError(f"detect_and_compute takes a grey (h, w) image, not {tuple(img.shape)}")
-    with torch.profiler.record_function("sift.pyramid"):
+    with span("sift.pyramid"):
         pyr = gaussian_pyramid(img)
     if not pyr:
         empty = torch.zeros(0, dtype=torch.float32, device=dev)
         return (Keypoints(empty.view(0, 2), empty, empty, empty, empty.int()),
                 torch.zeros(0, 128, dtype=torch.float32, device=dev))
-    with torch.profiler.record_function("sift.extrema"):
+    with span("sift.extrema"):
         gauss = _Flat([torch.stack(octave) for octave in pyr])
         dog_stacks = [torch.stack([b - a for a, b in zip(octave[:-1], octave[1:])]) for octave in pyr]
         ext = torch.cat([_extrema(d).reshape(-1) for d in dog_stacks])
@@ -515,14 +516,14 @@ def _from_candidates(ext, pyr, gauss, dogs, nfeatures, cap):
         r = torch.where(alive, r, IMG_BORDER)
         c = torch.where(alive, c, IMG_BORDER)
         o = torch.where(alive, o, 0)
-        with torch.profiler.record_function("sift.refine"):
+        with span("sift.refine"):
             (x, y, size, resp, code), (layer, r, c), alive = _refine(dogs, o, layer, r, c, alive)
-        with torch.profiler.record_function("sift.orientation"):
+        with span("sift.orientation"):
             angle, peak = _orientations(gauss, o, layer, r, c, size, alive)
         nb = ORI_HIST_BINS
         fields = tuple(a.view(-1, 1).expand(-1, nb).reshape(-1) for a in (x, y, size)) + (angle.reshape(-1),) + \
             tuple(a.view(-1, 1).expand(-1, nb).reshape(-1) for a in (resp, code))
-        with torch.profiler.record_function("sift.sort"):
+        with span("sift.sort"):
             (x, y, size, angle, resp, code), keep = _sort_dedup_retain(fields, peak.reshape(-1), nfeatures)
         o_k = code & 255
         scl = size * 0.5 / torch.pow(2.0, o_k.float())
@@ -538,7 +539,7 @@ def _from_candidates(ext, pyr, gauss, dogs, nfeatures, cap):
     o_k = code & 255
     layer_k = (code >> 8) & 255
     inv = torch.pow(2.0, -o_k.float())
-    with torch.profiler.record_function("sift.descriptors"):
+    with span("sift.descriptors"):
         desc = _descriptors(gauss, o_k, layer_k, x * inv, y * inv, size * inv, angle, max(int(rmax), 1))
     octave = ((code & ~255) | ((code - 1) & 255)).int()
     kp = Keypoints(torch.stack([x * 0.5, y * 0.5], 1), size * 0.5, angle, resp, octave)

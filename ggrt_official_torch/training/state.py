@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from ..config import GGRtConfig
+from ..utils.tracing import span
 
 STATE_POSE_ONLY = 0
 STATE_NERF_ONLY = 1
@@ -91,6 +92,7 @@ class TrainState:
         self.gaussian_opt.zero_grad()
         self.pose_opt.zero_grad()
 
+    @span("optimizer")
     def apply_updates(self, machine_state: int) -> None:
         """Gate, clip and step both optimizers; advance the step."""
         self.pose_opt.step(machine_state in (STATE_POSE_ONLY, STATE_JOINT))

@@ -35,6 +35,7 @@ from ..models.ggrt import GGRtModel, compose_joint_loss
 from . import state as state_lib
 from .pretrained import load_pretrained_trunks
 from .state import TrainState
+from ..utils.tracing import span
 
 
 def _inject_predicted_poses(batch: dict, rel_poses: torch.Tensor, detach: bool = True) -> dict:
@@ -152,6 +153,7 @@ def _to_device(tree, device):
     return tree.to(device)
 
 
+@span("prepare_batch")
 def prepare_batch(batch: dict, data_shim, device) -> dict:
     """Shim a loader's numpy batch and move it to `device`."""
     batch = {k: v for k, v in batch.items() if k not in ("rgb_path", "scaled_shape")}
@@ -234,6 +236,7 @@ class GGRtFinetuneTrainer(GGRtTrainer):
         full = self.draw_uniforms(batch)
         return full, [self.draw_uniforms(batch, pixels=(h // c) * (w // c)) for _ in range(c * c)]
 
+    @span("pose_pass", device=True)
     def pose_pass(self, batch: dict) -> torch.Tensor:
         """IPO-Net with the SfM loss, back-propagated: the pose learner's
         gradients come from it alone. Returns the relative poses."""
@@ -254,6 +257,7 @@ class GGRtFinetuneTrainer(GGRtTrainer):
         (rgb_grad,) = torch.autograd.grad(masked_l2_image_loss({"rgb": rgb}, gt), rgb)
         return rgb.detach(), gt, rgb_grad
 
+    @span("tile_pass", device=True)
     def tile_pass(self, batch: dict, rgb_grad: torch.Tensor, uniforms: list[torch.Tensor]) -> None:
         """Each tile of the crop_size x crop_size grid rendered with
         gradients (row i = k // c, column j = k % c, the JAX package's

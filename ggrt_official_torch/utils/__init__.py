@@ -1,4 +1,5 @@
 """Camera trajectories for the video renderer (torch tensors), the
-benchmarker and the cross-process step tracker."""
+benchmarker, the cross-process step tracker and the port's spans
+(`tracing`)."""
 from .benchmarker import Benchmarker
 from .step_tracker import StepTracker
