@@ -5,8 +5,8 @@
 Phases; each one that fails stops the run with a non-zero exit:
   1. card:   name and power limit from nvidia-smi; TF32 off in cuDNN and
              cuBLAS (the reference computes in float32).
-  2. build:  nvcc builds the seven kernels from ggrt_official_torch/csrc/,
-             one process for each of the five sources, all at once (the
+  2. build:  nvcc builds the eight kernels from ggrt_official_torch/csrc/,
+             one process for each of the six sources, all at once (the
              three probe kernels share precision_probe.cu).
   3. kernels: each kernel against its plain PyTorch version. The forward
              and backward compositors on the records of a real full-width
@@ -72,7 +72,15 @@ Phases; each one that fails stops the run with a non-zero exit:
              kernels' footprint test keeps. The banked kernel's bound
              counts bytes and integer operations (at the INT32 rate);
              tiling.bin_gaussians_banked's device and host ms per call at
-             both raster scales.
+             both raster scales. The encoder's 7x7 kernel (conv7_nhwc) at
+             the shapes of a request it runs (the refinement's two, the
+             feed-forward's first), beside its FFMA bound, the plain version
+             (cuDNN on the channels-last input, then the epilogue) and two
+             yardsticks the port never calls: cuDNN on the same
+             channels-last call, and on an NCHW-contiguous input with
+             cudnn.benchmark autotuned; the kernel equal to the plain
+             version bit for bit, and two calls bit-equal. Its launches on
+             every path that encodes (serve, train, eval, finetune, cache).
   8. profile: one more request, one more train step and one more raster
              step at each scale under torch.profiler; the kernels and ops
              that take the most device time, and the port's own kernels.
@@ -559,6 +567,68 @@ def compositor_timing(fwd, bwd, label, rec, col, cnt, fo, tag) -> dict:
               f"{nbytes} bytes at 3.35 TB/s = {lb[3]!r} ms); dense bound {db[0]!r} ms by {db[1]} "
               f"({dense} pairs x {ops}) {tag}")
         out[name] = {"ms": ms, "bound": lb, "dense": db}
+    return out
+
+
+# The encoder's 7x7 convolutions of a serve request (8 view-encodes) that
+# run through the kernel: (name, B, Cin, H, W, Cout, epilogue); the
+# refinement's two run once a request, the feed-forward's first once in each
+# of the transformer's two layers (its second stays on cuDNN's FFT).
+CONV7_SHAPES = (("refine1", 8, 128, 320, 448, 256, "GELU"), ("refine2", 8, 256, 320, 448, 128, "RESIDUAL"),
+                ("ff1", 8, 128, 80, 112, 256, "GELU"))
+
+
+def conv7_timing(tag: str, device="cuda", iters: int = 5) -> dict:
+    """The 7x7 kernel at CONV7_SHAPES: ms per launch (CUDA events), its
+    FFMA bound (2·M·N·49·Cin at 67 TFLOP/s against each input and output
+    byte once), the plain version's ms, and the two yardsticks' ms (cuDNN on
+    the channels-last call; cuDNN on an NCHW-contiguous input, autotuned);
+    whether the kernel gives the plain version's bits (cuDNN's generic
+    engine sums in the kernel's order) and two calls the same bits."""
+    import torch
+    import torch.nn.functional as F
+
+    from ggrt_official_torch.ops import conv7 as c7
+
+    out = {}
+    gen = torch.Generator(device=device).manual_seed(7)
+    for name, b, cin, h, w, cout, epi in CONV7_SHAPES:
+        mode = getattr(c7, epi)
+        x = torch.randn(b, h, w, cin, generator=gen, device=device).permute(0, 3, 1, 2)
+        wt = torch.randn(cout, cin, 7, 7, generator=gen, device=device) / math.sqrt(49 * cin)
+        bias = torch.randn(cout, generator=gen, device=device) * 0.1
+        res = (torch.randn(b, h, w, cout, generator=gen, device=device).permute(0, 3, 1, 2)
+               if mode == c7.RESIDUAL else None)
+        with torch.no_grad():
+            got, _ = c7.conv7_kernel.launch(x, wt, bias, mode, res)
+            again, _ = c7.conv7_kernel.launch(x, wt, bias, mode, res)
+            plain = c7.conv7_plain(x, wt, bias, mode, res)
+            err = float((got - plain).abs().max())
+            same = bool(torch.equal(got, plain))
+            ms = cuda_ms(lambda: c7.conv7_kernel.launch(x, wt, bias, mode, res), iters)
+            plain_ms = cuda_ms(lambda: c7.conv7_plain(x, wt, bias, mode, res), iters)
+            cudnn_nhwc_ms = cuda_ms(lambda: F.conv2d(x, wt, bias, padding=3), iters)
+            x_nchw = x.contiguous()
+            bench = torch.backends.cudnn.benchmark
+            torch.backends.cudnn.benchmark = True
+            try:
+                cudnn_nchw_ms = cuda_ms(lambda: F.conv2d(x_nchw, wt, bias, padding=3), iters)
+            finally:
+                torch.backends.cudnn.benchmark = bench
+        ops = 2 * b * h * w * cout * 49 * cin
+        nbytes = (x.numel() + got.numel() * (2 if res is not None else 1) + wt.numel() + cout) * 4
+        bound_ms, bound_by, _, _ = bound(ops, nbytes)
+        row = dict(ms=ms, plain_ms=plain_ms, library_ms=cudnn_nhwc_ms, library_nchw_ms=cudnn_nchw_ms,
+                   bound_ms=bound_ms, bound_by=bound_by, tflops=ops / ms / 1e9, max_abs_err=err,
+                   bit_equal_plain=same, deterministic=bool(torch.equal(got, again)))
+        out[name] = row
+        print(f"timing: conv7 {name} {b}x{cin}x{h}x{w} -> {cout} ({epi}): {ms!r} ms per launch "
+              f"({iters} launches, CUDA events), {row['tflops']!r} TFLOP/s; bound {bound_ms!r} ms by {bound_by} "
+              f"({ops / 1e12:.3f} TFLOP at 67 TFLOP/s); plain {plain_ms!r} ms; cuDNN channels-last "
+              f"{cudnn_nhwc_ms!r} ms, NCHW autotuned {cudnn_nchw_ms!r} ms; max |kernel - plain| {err!r}, "
+              f"bit-equal {same}; two calls bit-equal {row['deterministic']} {tag}", flush=True)
+        del x, res, got, again, plain, x_nchw
+        torch.cuda.empty_cache()
     return out
 
 
@@ -2513,6 +2583,7 @@ def main() -> None:
     from ggrt_official_torch.data.shims import get_data_shim
     from ggrt_official_torch.models.decoder_splatting import effective_max_per_tile
     from ggrt_official_torch.models.pixelsplat import PixelSplat
+    from ggrt_official_torch.ops import conv7 as c7
     from ggrt_official_torch.ops.cuda_kernel import build_all
     from ggrt_official_torch.ops.rasterizer import banked_gather as bg
     from ggrt_official_torch.ops.rasterizer import cuda_composite as cc
@@ -2543,11 +2614,11 @@ def main() -> None:
 
     # 2. build
     t0 = time.perf_counter()
-    build_all((*kernels, *probes))
-    built = list(dict.fromkeys(k.source.name for k in (*kernels, *probes)))
+    build_all((*kernels, *probes, c7.conv7_kernel))
+    built = list(dict.fromkeys(k.source.name for k in (*kernels, *probes, c7.conv7_kernel)))
     print(f"build: {', '.join(built)} in {time.perf_counter() - t0:.2f} s "
           f"(one nvcc each, in parallel)", flush=True)
-    for k in (*kernels, probes[0]):
+    for k in (*kernels, probes[0], c7.conv7_kernel):
         for line in k.build_log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {k.source.name}: {line.strip()}")
@@ -2628,7 +2699,7 @@ def main() -> None:
         model(requests[0], 0, deterministic=True)  # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        reset(*kernels)
+        reset(*kernels, c7.conv7_kernel)
         request_ms = []
         for i, batch in enumerate(requests):
             before = counts(*kernels)
@@ -2647,6 +2718,7 @@ def main() -> None:
             print(f"serve: request {i} rgb mean {rgb.mean().item():.4f} depth mean "
                   f"{depth.mean().item():.4f}, 2 kernel launches")
         launches["serve"] = counts(*kernels)
+        conv7_paths = {"serve": c7.conv7_kernel.launches}
         serve_peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
     # A small render on the card against the CPU path (the one the CPU tests
@@ -2679,7 +2751,7 @@ def main() -> None:
     trainer.train_iteration(scenes[-1], "joint")  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset(*kernels)
+    reset(*kernels, c7.conv7_kernel)
     step_ms = []
     for i, machine in enumerate(TRAIN_MACHINES):
         snap = {k: [p.detach().clone() for p in ps] for k, ps in groups.items()}
@@ -2704,6 +2776,7 @@ def main() -> None:
                 fail(f"train step {i} ({machine}): the open group {k} did not move")
         del snap
     launches["train"] = counts(*kernels)
+    conv7_paths["train"] = c7.conv7_kernel.launches
     train_peak_gib = torch.cuda.max_memory_allocated() / 2**30
     # The host syncs left in one 'joint' step, each with the line it comes
     # from (not counted in the launches above).
@@ -2785,6 +2858,9 @@ def main() -> None:
               f"{'all' if b['queued'] else 'NOT all'} queued within it), device "
               f"kernel time {b['kernel_ms']!r} ms per call (profiler, 5 calls), host "
               f"{b['host_ms']!r} ms per call (enqueue, 10 calls) {tag}")
+    conv7 = conv7_timing(tag)
+    print(f"timing: conv7 launches over the 3 requests {conv7_paths['serve']} (2 + 1 a transformer layer, one "
+          f"encoder call a request) {tag}")
     print(f"timing: request ms {', '.join(f'{x:.1f}' for x in request_ms)} {tag}")
     print(f"timing: step ms {', '.join(f'{m} {x:.1f}' for m, x in step_ms)} "
           f"(after one warm-up step) {tag}")
@@ -2828,9 +2904,10 @@ def main() -> None:
 
     # 9. eval: reset the counts, drive the eval path, read the counts.
     t0 = time.perf_counter()
-    reset(*kernels)
+    reset(*kernels, c7.conv7_kernel)
     ev = eval_phase(cfg, trainer.model, kernels, tag)
     launches["eval"] = counts(*kernels)
+    conv7_paths["eval"] = c7.conv7_kernel.launches
     want = {"view": (2, 0, 0, 0), "refined view": (2 + 2 * REFINE_ROUNDS, 0, 0, 0), "pose_targets": (0, 0, 0, 0)}
     for name, w in want.items():
         if ev["made"][name] != w:
@@ -2858,9 +2935,10 @@ def main() -> None:
 
     # 11. finetune: reset the counts, drive the finetune path, read the counts.
     t0 = time.perf_counter()
-    reset(*kernels)
+    reset(*kernels, c7.conv7_kernel)
     ft = finetune_phase(kernels, tag)
     launches["finetune"] = counts(*kernels)
+    conv7_paths["finetune"] = c7.conv7_kernel.launches
     c = config.finetune_config().train.crop_size
     want = (1 + c * c, c * c, c * c, 0)
     if (ft["pairs"], ft["g_full"], ft["g_tile"]) != (6, 5_160_960, 1_290_240):
@@ -2883,9 +2961,10 @@ def main() -> None:
 
     # 12. cache A/B: reset the counts, drive both trainers, read the counts.
     t0 = time.perf_counter()
-    reset(*kernels)
+    reset(*kernels, c7.conv7_kernel)
     ab = cache_phase(kernels, tag)
     launches["cache"] = counts(*kernels)
+    conv7_paths["cache"] = c7.conv7_kernel.launches
     for name in ("off", "on"):
         if any(m != (2, 1, 1, 0) for m in ab[name]["made"]):
             fail(f"cache {name}: launches per step {ab[name]['made']}, not (2, 1, 1, 0)")
@@ -3242,6 +3321,25 @@ def main() -> None:
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound"][0], "bound_by": row["bound"][1],
             "library_ms": row["library_ms"], "floor_ms": row["floor_ms"],
         })
+    c = conv7["refine1"]
+    table.append({
+        "name": "conv7_nhwc", "route": "cuda", "source": "ggrt_official_torch/csrc/conv7_nhwc.cu",
+        "replaces": "none (XLA's convolutions)", "launches": conv7_paths["serve"], "max_abs_err": c["max_abs_err"],
+        "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+        "library_ms": c["library_ms"], "library_nchw_ms": c["library_nchw_ms"],
+        "by_shape": {k: {f: v[f] for f in ("ms", "bound_ms", "plain_ms", "library_ms", "library_nchw_ms")}
+                     for k, v in conv7.items()},
+    })
+    # cuDNN's generic engine, the plain version's at these shapes, sums in
+    # the kernel's order: any difference is a fault.
+    if not all(v["deterministic"] and v["bit_equal_plain"] for v in conv7.values()):
+        fail(f"conv7: two calls differ or the kernel is off the plain version's bits: {conv7}")
+    if conv7_paths["serve"] != 3 * (2 + cfg.encoder.epipolar_transformer.num_layers):
+        fail(f"conv7: {conv7_paths['serve']} launches over the 3 requests")
+    # Every path that encodes runs its 7x7 convolutions through the kernel.
+    print(f"timing: conv7 launches by path {conv7_paths} {tag}")
+    if not all(conv7_paths.values()):
+        fail(f"conv7: a path that encodes did not launch the kernel: {conv7_paths}")
     if not (launches["serve"][0] and all(launches["train"][:3]) and all(launches["raster"])
             and launches["eval"][0] and all(launches["loop"][:3]) and all(launches["finetune"][:3])
             and all(launches["cache"][:3]) and all(launches["flagship"][:3])

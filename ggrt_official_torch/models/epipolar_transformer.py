@@ -9,7 +9,13 @@ feed-forward is convolutional with a patch-token image self-attention.
 flax's ConvTranspose does not flip its kernel and torch's does; the weight
 loader (weights.py) flips it, so the layers here are plain torch layers.
 Convs with kernel = stride = 4 pad nothing, as flax 'SAME' does when h and
-w divide by 16 (the patch shim guarantees it); 7x7 convs pad 3.
+w divide by 16 (the patch shim guarantees it); 7x7 convs pad 3. Those that
+cuDNN runs on its generic NHWC engine at a request's shapes (the
+refinement's two, the feed-forward's first) run through ops/conv7.py: on a
+card a kernel with that engine's summation order and the GELU, bias and
+residual fused. The feed-forward's second stays an nn.Conv2d: cuDNN runs it
+at 80x112 as an FFT, faster than the kernel and with other bits. The modules keep their nn.Conv2d
+parameters and state-dict keys.
 """
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ from torch import nn
 from ..config import EpipolarTransformerCfg, ImageSelfAttentionCfg
 from ..geometry.depth import depth_to_relative_disparity
 from ..geometry.epipolar import get_depth
+from ..ops.conv7 import GELU, RESIDUAL, conv7
 from .epipolar_sampler import EpipolarSampling, collect_other_views, sample_epipolar
 from .transformer import PositionalEncoding, Transformer
 
@@ -59,6 +66,7 @@ class ConvFeedForward(nn.Module):
         self.self_attention = ImageSelfAttention(self_attention, d_in, d_in)
         # The reference's Sequential(Conv, GELU, Dropout, Conv, Dropout);
         # dropout is 0, so its slot holds an Identity and keeps the indices.
+        # forward applies layers[0] with its GELU through conv7.
         self.layers = nn.Sequential(
             nn.Conv2d(d_in, d_hidden, 7, padding=3), nn.GELU(approximate="tanh"),
             nn.Identity(), nn.Conv2d(d_hidden, d_in, 7, padding=3),
@@ -67,7 +75,7 @@ class ConvFeedForward(nn.Module):
     def forward(self, x: torch.Tensor, bv: int, h: int, w: int) -> torch.Tensor:
         img = x.reshape(bv, h, w, self.d_in).permute(0, 3, 1, 2)
         img = self.self_attention(img) + img
-        img = self.layers(img)
+        img = self.layers[3](conv7(img, self.layers[0], GELU))
         return img.permute(0, 2, 3, 1).reshape(bv * h * w, 1, self.d_in)
 
 
@@ -154,6 +162,7 @@ class EpipolarTransformer(nn.Module):
 
         if c.downscale:
             up = self.upscaler(out.reshape(b * v, hq, wq, d).permute(0, 3, 1, 2))
-            out = up + self.upscale_refinement(up)
+            r = self.upscale_refinement
+            out = conv7(conv7(up, r[0], GELU), r[2], RESIDUAL, residual=up)
             out = out.permute(0, 2, 3, 1).reshape(b, v, hq * c.downscale, wq * c.downscale, d)
         return out, sampling
