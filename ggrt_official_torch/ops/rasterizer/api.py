@@ -53,14 +53,14 @@ def _render_one(
             extrinsics, intrinsics, near, far, image_shape, background,
             tile_shape=(th, tw),
         )
-    with span("raster.project"):
+    with span("raster.project", device=True):
         pg = project_gaussians(
             means, covariances, sh_coeffs, opacities,
             extrinsics, intrinsics, near, far, image_shape,
         )
     # Binning is a discrete choice (which Gaussians land on which tile, in
     # what order) and carries no gradient.
-    with span("raster.bin"):
+    with span("raster.bin", device=True):
         binning = BINNINGS[binning_mode](
             ProjectedGaussians(*(x.detach() for x in pg)),
             image_shape, max_dup=max_dup, max_per_tile=max_per_tile,

@@ -398,9 +398,9 @@ def composite_tiles(
     """Composite every tile and assemble the (3, h, w) image."""
     h, w = image_shape
     nty, ntx = binning.num_tiles_y, binning.num_tiles_x
-    with span("raster.records"):
+    with span("raster.records", device=True):
         records, colors, counts = build_records(pg, binning, tile_h, tile_w)
-    with span("raster.composite"):
+    with span("raster.composite", device=True):
         acc, tfin = CompositeCore.apply(records, colors, counts, tile_h, tile_w)
     img = acc[..., :3].transpose(1, 2) + tfin.transpose(1, 2) * background[None, :, None]
     img = img.reshape(nty, ntx, 3, tile_h, tile_w).permute(2, 0, 3, 1, 4)

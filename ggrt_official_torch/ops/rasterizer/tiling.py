@@ -28,6 +28,7 @@ from typing import NamedTuple
 import torch
 
 from ...constants import device_constant
+from ...utils.tracing import count
 from . import banked_gather as bg
 from .projection import ProjectedGaussians
 
@@ -151,8 +152,14 @@ def _window_tiles(x0w, y0w, nxw, nyw, visible, ntx: int, num_tiles: int, max_dup
 
 def _lists(starts: torch.Tensor, sorted_ids: torch.Tensor, max_per_tile: int):
     """Front-K ids of each tile's run [starts[t], starts[t+1]) of a list
-    sorted by tile; -1 past the run."""
+    sorted by tile; -1 past the run. While the profiler records, counts the
+    duplicate keys that name a tile (`raster.keys`: the sort's entries ahead
+    of its padding) and the (tile, Gaussian) pairs the lists keep within K
+    (`raster.kept`), as the tensors that hold them: counting launches
+    nothing."""
     counts = torch.clamp(starts[1:] - starts[:-1], max=max_per_tile)
+    count("raster.keys", starts[-1])
+    count("raster.kept", counts)
     k = torch.arange(max_per_tile, dtype=torch.int32, device=starts.device)
     positions = torch.clamp(starts[:-1, None] + k[None, :], 0, sorted_ids.shape[0] - 1)
     in_seg = k[None, :] < counts[:, None]

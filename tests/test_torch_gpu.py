@@ -1191,3 +1191,56 @@ def test_two_view_geometry_on_card(cuda):
     (Rt, tt, n), syncs = syncs_of(lambda: two_view.two_view_geometry(p1, p2, K, 30, gen))
     err = np.degrees(np.linalg.norm(Rotation.from_matrix(Rt @ R.T).as_rotvec()))
     assert err < 0.1 and n >= 210 and syncs == 2, (err, n, syncs)
+
+
+def test_waymo_encode_and_frame_wait_for_nothing(cuda):
+    """At Waymo's 640x960 and pretrain_config() widths, under a profiler
+    session (the port's spans and counters on): the encode of 5 views (one
+    pair a call) and a frame queue all their work without a host sync after
+    one warm-up of each; the counters then read back each frame's keys and
+    kept pairs, and the raster stages their device times."""
+    from ggrt_official_torch.config import pretrain_config
+    from ggrt_official_torch.data import datasets
+    from ggrt_official_torch.data.shims import get_data_shim
+    from ggrt_official_torch.models.decoder_splatting import DecoderSplatting
+    from ggrt_official_torch.models.pixelsplat import PixelSplat
+    from ggrt_official_torch.scripts.render_video import decode_frame
+    from ggrt_official_torch.training.trainer import prepare_batch
+    from ggrt_official_torch.utils import tracing
+
+    shape = (640, 960)
+    cfg = pretrain_config()
+    model = PixelSplat(cfg.encoder, cfg.decoder, device=cuda).eval()
+    ds = datasets.SyntheticPlanesDataset(datasets.SyntheticSceneSpec(n_views=8, image_size=shape),
+                                         num_source_views=cfg.train.num_source_views)
+    batch = prepare_batch(datasets.collate_batch(ds[0]), get_data_shim(cfg.encoder), cuda)
+    ctx = batch["context"]
+    decoder = DecoderSplatting(cfg.decoder)
+
+    def frame(g):
+        return decode_frame(decoder, g, ctx["extrinsics"][0, 1], ctx["intrinsics"][0, 1], ctx["near"][:, :1],
+                            ctx["far"][:, :1], shape)
+
+    tracing.clear()
+    with torch.inference_mode(), torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                                     torch.profiler.ProfilerActivity.CUDA]):
+        first = frame(model.encode_pairs(ctx, 0, deterministic=True))
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            g = model.encode_pairs(ctx, 0, deterministic=True)
+            again = frame(g)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    counted = tracing.counts()
+    spans = tracing.spans()
+    tracing.clear()
+    assert ctx["image"].shape[1] == 5 and g.means.shape == (1, 4 * 2 * shape[0] * shape[1], 3)
+    assert again.shape == (*shape, 3) and again.dtype == torch.uint8
+    assert int((again.int() - first.int()).abs().max()) <= 1
+    keys = [c.value for c in counted if c.name == "raster.keys"]
+    kept = [c.value for c in counted if c.name == "raster.kept"]
+    assert len(keys) == len(kept) == 2 and all(0 < b <= a for a, b in zip(keys, kept))
+    for name in ("raster.project", "raster.bin", "raster.records", "raster.composite"):
+        ms = [r.device_ms for r in spans if r.name == name]
+        assert len(ms) == 2 and all(m is not None and m > 0 for m in ms), name
